@@ -1,4 +1,4 @@
-"""Smoke run of repro_torch on one CUDA card: kernels, served path, numbers.
+"""Smoke run of repro_torch on one CUDA card: kernels, served paths, numbers.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -14,23 +14,42 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. ``fused_query`` kernel vs plain, ``resident`` at n = 2^20 and ``dma`` at
    n = 2^26 (and each fetch at the other size), B in {4096, 4099}: indices
    and values equal, and the two fetches equal;
-4. the served path through ``repro_torch.launch.serve.main``: hybrid and
+4. ``fused_query_packed`` vs plain: packed32 at n = 2^20 int32 (key span
+   49) and on the Euler-tour depth array of a complete binary tree of
+   height 24 (n = 2^26 - 3, depths 0..24: the +-1 RMQ that LCA queries
+   reduce to, and a key span that packed32 holds, 25 << 26 < 2^31), both
+   fetches, equal to each other; quantized at n = 2^20 and 2^26, float32
+   and int32. Then ``rmq_partials`` and ``lane_partials`` vs plain at
+   n = 2^26 float32 and int32, ``ops.query(fused=False)`` equal to
+   ``ops.query`` and ``ops.lane_query`` equal to ``core.lane_rmq.query``,
+   both checked against the oracle on a sample. B in {4096, 4099}, bit for
+   bit;
+5. the served paths. Through ``repro_torch.launch.serve.main``: hybrid and
    fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 (where the
    resident fetch serves), hybrid async at n = 2^26 with small and medium
-   ranges, every request checked against the numpy oracle. The launch
-   counts are set to 0 just before each of these runs and read just after;
-   each kernel must have launched in them;
-5. one JSON ``kernels`` line, the card line again, and the last line
+   ranges; packed_hybrid --packed quantized at n = 2^26 oneshot and async;
+   packed_hybrid at n = 2^26 with the layout left to the data (float32:
+   packed64, which has no kernel). Through the library: packed_hybrid
+   packed32 on the Euler array and at n = 2^20 (resident fetch), and
+   ``ops.query(fused=False)`` and ``ops.lane_query`` at n = 2^26. Every
+   answer is checked against the numpy oracle; the launch counts are set to
+   0 just before each run and read just after, and each run must have
+   launched its kernels (the packed64 run: none of them);
+6. the traced async hybrid run (the device's idle share), one JSON
+   ``kernels`` line, the wall time, the card line again, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Times are medians of CUDA-event timings (ms). ``bound_ms`` is the larger of
-the bytes the call must move over 3.35 TB/s and its operations over the
-card's peak (67 TFLOP/s float32 outside the tensor cores; tiny here), from
-this run's inputs. Tolerance of every comparison: exact.
+Times are medians of CUDA-event timings (ms); kernel ms is the device time
+``torch.profiler`` reports. ``bound_ms`` is the larger of the bytes the call
+must move over 3.35 TB/s and its operations over the card's peak (67 TFLOP/s
+float32 outside the tensor cores; tiny here), from this run's inputs.
+Tolerance of every comparison: exact.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -40,6 +59,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
 N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: the largest "auto" resident size
+EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
 
 
 def _card_line() -> str:
@@ -70,23 +90,25 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def _kernel_ms(torch, fn, name: str, iters: int = 20):
+def _kernel_ms(torch, fn, name: str, iters: int = 20, attempts: int = 3):
     """Device time of one launch of the kernel whose name holds ``name``,
-    from ``torch.profiler`` (mean over ``iters`` launches); None when the
-    profiler records no such kernel."""
+    from ``torch.profiler`` (mean over ``iters`` launches). A session that
+    records no such kernel (it happens now and then) is run again; None
+    after ``attempts`` empty sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in hits)
-    if not count:
-        return None
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+    return None
 
 
 def _require(cond: bool, what: str) -> None:
@@ -124,6 +146,64 @@ def _fq_bytes(l, r, bs: int, itemsize: int, fetch: str) -> int:
     cell = 2 * (itemsize + 4) if fetch == "dma" else 2 * 4 + 2 * (itemsize + 4)
     hasint = (br - bl) >= 2
     return int(elems.sum() * itemsize + hasint.sum() * cell + l.size * (8 + 4 + itemsize))
+
+
+def _packed_bytes(l, r, bs: int, itemsize: int, layout: str) -> int:
+    """Bytes one fused_query_packed call must move: the words (packed32) or
+    values (quantized) of each partial range, the interior cells (two words;
+    quantized also their two block minima), the bounds and the outputs."""
+    import numpy as np
+
+    l = l.astype(np.int64)
+    r = r.astype(np.int64)
+    bl, br = l // bs, r // bs
+    ls, re = l - bl * bs, r - br * bs
+    le = np.where(bl == br, re, bs - 1)
+    elems = (le - ls + 1) + np.where(br > bl, re + 1, 0)
+    word = 4 if layout == "packed32" else itemsize
+    cell = 2 * 4 + (2 * itemsize if layout == "quantized" else 0)
+    hasint = (br - bl) >= 2
+    return int(elems.sum() * word + hasint.sum() * cell + l.size * (8 + 4 + itemsize))
+
+
+def _partials_bytes(l, r, bs: int, itemsize: int) -> int:
+    """Bytes one rmq_partials call must move: the elements of each partial
+    range, five int32 bounds per query, and the (value, index) outputs."""
+    import numpy as np
+
+    l = l.astype(np.int64)
+    r = r.astype(np.int64)
+    bl, br = l // bs, r // bs
+    ls, re = l - bl * bs, r - br * bs
+    le = np.where(bl == br, re, bs - 1)
+    elems = (le - ls + 1) + np.where(br > bl, re + 1, 0)
+    return int(elems.sum() * itemsize + l.size * (20 + 4 + itemsize))
+
+
+def _lane_bytes(l, r, itemsize: int) -> int:
+    """Bytes one lane_partials call must move: a same-block query's masked
+    elements, a straddling one's suffix and prefix cells (value + index),
+    four int32 bounds per query, and the outputs."""
+    import numpy as np
+
+    l = l.astype(np.int64)
+    r = r.astype(np.int64)
+    same = (l // 128) == (r // 128)
+    elems = np.where(same, (r - l + 1) * itemsize, 2 * (itemsize + 4))
+    return int(elems.sum() + l.size * (16 + 4 + itemsize))
+
+
+def euler_depths(height: int):
+    """Depths along the Euler tour of a complete binary tree of ``height``:
+    E(0) = [0], E(h) = [0] + (E(h-1) + 1) + [0] + (E(h-1) + 1) + [0];
+    length 2^(height+2) - 3, int32, adjacent entries differ by one."""
+    import numpy as np
+
+    e = np.zeros(1, np.int32)
+    zero = np.zeros(1, np.int32)
+    for _ in range(height):
+        e = np.concatenate([zero, e + 1, zero, e + 1, zero])
+    return e
 
 
 def _device_busy_share(torch, np, dev) -> None:
@@ -171,6 +251,7 @@ def _device_busy_share(torch, np, dev) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     import numpy as np
@@ -180,10 +261,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 1
 
+    from repro_torch.core import hybrid, lane_rmq, ref, registry
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.block_min import block_min, block_min_plain
-    from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+    from repro_torch.kernels.fused_query import (
+        fused_query,
+        fused_query_packed,
+        fused_query_packed_plain,
+        fused_query_plain,
+    )
+    from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
+    from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
     from repro_torch.launch import serve
+    from repro_torch.serve.workload import make_queries
 
     # --- phase 1: card, versions, kernel build ------------------------------
     card = _card_line()
@@ -286,48 +376,280 @@ def main() -> int:
                     f"fused_query resident != dma ({kind} n={n} B={b})",
                 )
                 print(f"[fused_query] {kind} n={n} B={b}: resident == dma == plain")
-            del s
+            del s, args, tables  # the served runs measure their own peak memory
 
-    # --- phase 4: the served path -------------------------------------------
-    counts = {"block_min": 0, "fused_query[resident]": 0, "fused_query[dma]": 0}
+    # --- phase 4: fused_query_packed, rmq_partials, lane_partials ------------
+    def same_bits(a, b) -> bool:
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
-    def drive(argv):
+    euler = euler_depths(EULER_HEIGHT)
+    packed_cases = [
+        ("packed32", "i32", N_RESIDENT, "resident"),
+        ("packed32", "euler", euler.size, "dma"),
+        ("quantized", "f32", N_RESIDENT, None),
+        ("quantized", "i32", N_RESIDENT, None),
+        ("quantized", "f32", N_MAIN, "resident"),
+        ("quantized", "i32", N_MAIN, None),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    for layout, kind, n, timed in packed_cases:
+        if kind == "f32":
+            x = rng.random(n, dtype=np.float32)
+        elif kind == "i32":
+            x = rng.integers(-24, 25, n).astype(np.int32)  # key span 49: packed32 fits
+        else:
+            x = euler
+        s, spec = ops.build_packed(x, 128, layout=layout, device=dev)
+        nbk = s.blocks.shape[0]
+        print(f"[fused_query_packed] {layout} {kind} n={n} nb={nbk}: spec {spec}")
+        for b in (4096, 4099):
+            l, r = _queries(rng, n, b)
+            lt = torch.from_numpy(l).to(dev)
+            rt = torch.from_numpy(r).to(dev)
+            args = (s.blocks, s.stw, lt, rt)
+            kw = dict(spec=spec, bmin_val=s.bmin_val)
+            pi, pv = fused_query_packed_plain(*args, **kw)
+            outs = {}
+            for fetch in ("resident", "dma") if layout == "packed32" else ("resident",):
+                ki, kv = fused_query_packed(*args, **kw, fetch=fetch)
+                torch.cuda.synchronize()
+                _require(
+                    torch.equal(ki, pi) and same_bits(kv, pv),
+                    f"fused_query_packed {layout} {fetch} {kind} n={n} B={b} != plain",
+                )
+                outs[fetch] = (ki, kv)
+                if fetch != timed or b != 4096:
+                    continue
+                call = lambda: fused_query_packed(*args, **kw, fetch=fetch)
+                name = f"fused_query_packed[{layout},{fetch}]" if layout == "packed32" else "fused_query_packed[quantized]"
+                call_ms = _time_ms(torch, call)
+                ms = _kernel_ms(torch, call, f"fused_query_{layout}")
+                plain_ms = _time_ms(torch, lambda: fused_query_packed_plain(*args, **kw))
+                bound_ms = _packed_bytes(l, r, 128, 4, layout) / HBM_BYTES_PER_S * 1e3
+                err = _max_abs_err(torch, kv, pv)
+                print(
+                    f"[fused_query_packed] {layout} {fetch} {kind} n={n} B={b}: equal to plain "
+                    f"(max_abs_err {err}); kernel {ms} ms/batch on the device, {call_ms:.4f} ms "
+                    f"per wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
+                )
+                kernels[name] = dict(
+                    ms=ms if ms is not None else call_ms, call_ms=call_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, library_ms=None, max_abs_err=err,
+                )
+            if layout == "packed32":
+                _require(
+                    torch.equal(outs["resident"][0], outs["dma"][0])
+                    and same_bits(outs["resident"][1], outs["dma"][1]),
+                    f"fused_query_packed resident != dma ({kind} n={n} B={b})",
+                )
+            sample = slice(0, 256)
+            gold = ref.rmq_ref(x, l[sample], r[sample])
+            _require(bool((pi[sample].cpu().numpy() == gold).all()), f"packed {layout} {kind} != oracle")
+            print(f"[fused_query_packed] {layout} {kind} n={n} B={b}: kernel == plain (all fetches), oracle OK on 256")
+        del s, args, kw
+    print(
+        f"[fused_query_packed] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+        "(packed builds up to n = 2^26)"
+    )
+
+    for kind in ("f32", "i32"):
+        x = rng.random(N_MAIN, dtype=np.float32) if kind == "f32" else rng.integers(0, 3, N_MAIN).astype(np.int32)
+        fs = ops.build(x, 128, device=dev)
+        ls_ = lane_rmq.build(x, device=dev)
+        planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
+        for b in (4096, 4099):
+            l, r = _queries(rng, N_MAIN, b)
+            lt = torch.from_numpy(l).to(dev)
+            rt = torch.from_numpy(r).to(dev)
+            bl, br = lt // 128, rt // 128
+            ls, re = lt - bl * 128, rt - br * 128
+            pargs = (fs.x_blocks, bl, br, ls, torch.where(bl == br, re, 127), re)
+            kv, ki = rmq_partials(*pargs)
+            pv, pi = rmq_partials_plain(*pargs)
+            sl, sr = lt // 128, rt // 128
+            largs = (*planes, sl, sr, lt - sl * 128, rt - sr * 128)
+            lkv, lki = lane_partials(*largs)
+            lpv, lpi = lane_partials_plain(*largs)
+            two = ops.query(fs, lt, rt, fused=False)
+            one = ops.query(fs, lt, rt)
+            lq = ops.lane_query(ls_, lt, rt)
+            lr = lane_rmq.query(ls_, lt, rt)
+            torch.cuda.synchronize()
+            _require(torch.equal(ki, pi) and same_bits(kv, pv), f"rmq_partials {kind} B={b} != plain")
+            _require(torch.equal(lki, lpi) and same_bits(lkv, lpv), f"lane_partials {kind} B={b} != plain")
+            _require(torch.equal(two[0], one[0]) and same_bits(two[1], one[1]), f"two-pass != fused ({kind} B={b})")
+            _require(torch.equal(lq[0], lr[0]) and torch.equal(lq[1], lr[1]), f"lane_query != lane_rmq ({kind} B={b})")
+            gold = ref.rmq_ref(x, l[:256], r[:256])
+            _require(
+                bool((two[0][:256].cpu().numpy() == gold).all() and (lq[0][:256].cpu().numpy() == gold).all()),
+                f"two-pass / lane query != oracle ({kind} B={b})",
+            )
+            print(f"[partials] {kind} n={N_MAIN} B={b}: rmq_partials, lane_partials == plain; two-pass == fused; lane_query == lane_rmq; oracle OK on 256")
+            if kind != "f32" or b != 4096:
+                continue
+            for name, call, plain, kname, nbytes in (
+                ("rmq_partials", lambda: rmq_partials(*pargs), lambda: rmq_partials_plain(*pargs),
+                 "rmq_partials_kernel", _partials_bytes(l, r, 128, 4)),
+                ("lane_partials", lambda: lane_partials(*largs), lambda: lane_partials_plain(*largs),
+                 "lane_partials_kernel", _lane_bytes(l, r, 4)),
+            ):
+                call_ms = _time_ms(torch, call)
+                ms = _kernel_ms(torch, call, kname)
+                plain_ms = _time_ms(torch, plain)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                print(
+                    f"[{name}] f32 n={N_MAIN} B={b}: kernel {ms} ms/batch on the device, "
+                    f"{call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
+                )
+                kernels[name] = dict(
+                    ms=ms if ms is not None else call_ms, call_ms=call_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, library_ms=None, max_abs_err=0.0,
+                )
+        del fs, ls_, planes, pargs, largs
+    print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 5: the served paths ------------------------------------------
+    counters = {
+        "block_min": lambda: block_min.launches,
+        "fused_query[resident]": lambda: fused_query.launches_by_fetch["resident"],
+        "fused_query[dma]": lambda: fused_query.launches_by_fetch["dma"],
+        "fused_query_packed[packed32,resident]": lambda: fused_query_packed.launches_by_body["packed32[resident]"],
+        "fused_query_packed[packed32,dma]": lambda: fused_query_packed.launches_by_body["packed32[dma]"],
+        "fused_query_packed[quantized]": lambda: fused_query_packed.launches_by_body["quantized"],
+        "rmq_partials": lambda: rmq_partials.launches,
+        "lane_partials": lambda: lane_partials.launches,
+    }
+    counts = dict.fromkeys(counters, 0)
+
+    def reset_counts():
         block_min.launches = 0
         fused_query.launches = 0
         fused_query.launches_by_fetch = {"resident": 0, "dma": 0}
-        serve.main(argv)  # prints verify[...] OK / verify: k/k; exits 1 on a mismatch
-        run = {
-            "block_min": block_min.launches,
-            "fused_query[resident]": fused_query.launches_by_fetch["resident"],
-            "fused_query[dma]": fused_query.launches_by_fetch["dma"],
-        }
-        _require(run["block_min"] > 0 and fused_query.launches > 0, f"kernels not launched by {argv}")
+        fused_query_packed.launches = 0
+        fused_query_packed.launches_by_body = dict.fromkeys(fused_query_packed.launches_by_body, 0)
+        rmq_partials.launches = 0
+        lane_partials.launches = 0
+
+    def drive(label, fn, must=(), none=False):
+        """Run one served path with the counts at 0; ``must`` kernels have to
+        launch in it, and with ``none`` no kernel may."""
+        reset_counts()
+        fn()
+        run = {k: get() for k, get in counters.items()}
+        for k in must:
+            _require(run[k] > 0, f"{k} was not launched by {label}")
+        if none:
+            _require(not any(run.values()), f"{label} launched a kernel: {run}")
         for k, v in run.items():
             counts[k] += v
-        print(f"[served] launches {json.dumps(run)}")
+        print(f"[served] {label}: launches {json.dumps({k: v for k, v in run.items() if v})}")
+
+    def cli(argv):
+        return lambda: serve.main(argv)  # prints verify lines; exits 1 on a mismatch
 
     oneshot = ["--mode", "oneshot", "--batch", "4096", "--batches", "8", "--dist", "small"]
-    drive([*oneshot, "--engine", "hybrid", "--n", str(N_MAIN)])
-    drive([*oneshot, "--engine", "fused128", "--n", str(N_MAIN)])
-    drive([*oneshot, "--engine", "hybrid", "--n", str(N_RESIDENT)])
+    asy = ["--mode", "async", "--clients", "4", "--requests", "32", "--req-batch", "256"]
+    unpacked = ("block_min",)
+    drive("hybrid oneshot 2^26", cli([*oneshot, "--engine", "hybrid", "--n", str(N_MAIN)]),
+          (*unpacked, "fused_query[dma]"))
+    drive("fused128 oneshot 2^26", cli([*oneshot, "--engine", "fused128", "--n", str(N_MAIN)]),
+          (*unpacked, "fused_query[dma]"))
+    drive("hybrid oneshot 2^20", cli([*oneshot, "--engine", "hybrid", "--n", str(N_RESIDENT)]),
+          (*unpacked, "fused_query[resident]"))
     torch.cuda.reset_peak_memory_stats()
     for dist in ("small", "medium"):
-        drive(
-            [
-                "--mode", "async", "--engine", "hybrid", "--n", str(N_MAIN),
-                "--clients", "4", "--requests", "32", "--req-batch", "256", "--dist", dist,
-            ]
-        )
+        drive(f"hybrid async {dist} 2^26",
+              cli([*asy, "--engine", "hybrid", "--n", str(N_MAIN), "--dist", dist]), unpacked)
     print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (async hybrid, n={N_MAIN})")
+
+    torch.cuda.reset_peak_memory_stats()
+    quant = ["--engine", "packed_hybrid", "--packed", "quantized", "--n", str(N_MAIN)]
+    drive("packed_hybrid quantized oneshot 2^26", cli([*oneshot, *quant]), ("fused_query_packed[quantized]",))
+    drive("packed_hybrid quantized async small 2^26", cli([*asy, *quant, "--dist", "small"]),
+          ("fused_query_packed[quantized]",))
+    print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (packed_hybrid quantized, n={N_MAIN})")
+
+    def auto_layout():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main([*oneshot, "--engine", "packed_hybrid", "--n", str(N_MAIN)])
+        text = buf.getvalue()
+        print(text, end="")
+        _require("layout packed64" in text, "packed_hybrid on float32 data did not resolve to packed64")
+        print("[served] packed_hybrid --packed auto on float32 n=2^26 resolved to layout packed64 (no kernel)")
+
+    torch.cuda.reset_peak_memory_stats()
+    drive("packed_hybrid auto oneshot 2^26", auto_layout, none=True)
+    print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (packed_hybrid packed64, n={N_MAIN})")
+
+    def packed32_batches(x, label):
+        def run():
+            t0 = time.perf_counter()
+            state = registry.build_for_serving("packed_hybrid", x, device=dev, packed="packed32")
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            qrng = np.random.default_rng(1)
+            served, t_serve = 0, 0.0
+            for _ in range(8):
+                l, r = make_queries(qrng, x.size, 4096, "small")
+                t0 = time.perf_counter()
+                idx, val = hybrid.query(state, l, r)
+                torch.cuda.synchronize()
+                t_serve += time.perf_counter() - t0
+                gold = ref.rmq_ref(x, l, r)
+                _require(
+                    bool((idx.cpu().numpy() == gold).all() and (val.cpu().numpy() == x[gold]).all()),
+                    f"packed32 {label} != oracle",
+                )
+                served += l.size
+            print(
+                f"[packed_hybrid] packed32 {label} n={x.size}: build {t_build * 1e3:.1f} ms, "
+                f"served {served} RMQs in {t_serve * 1e3:.1f} ms ({t_serve / served * 1e9:.1f} ns/RMQ), "
+                f"verify: {served}/{served} equal to the oracle"
+            )
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    drive("packed_hybrid packed32 Euler oneshot", packed32_batches(euler, "Euler tour"),
+          ("fused_query_packed[packed32,dma]",))
+    print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (packed_hybrid packed32, n={euler.size})")
+    small_span = np.random.default_rng(2).integers(-24, 25, N_RESIDENT).astype(np.int32)
+    drive("packed_hybrid packed32 oneshot 2^20", packed32_batches(small_span, "span 49"),
+          ("fused_query_packed[packed32,resident]",))
+
+    def entry_point_batches():
+        x = np.random.default_rng(3).random(N_MAIN, dtype=np.float32)
+        fs = ops.build(x, 128, device=dev)
+        ls_ = lane_rmq.build(x, device=dev)
+        qrng = np.random.default_rng(4)
+        for _ in range(8):
+            l, r = make_queries(qrng, N_MAIN, 4096, "small")
+            two = ops.query(fs, l, r, fused=False)
+            lq = ops.lane_query(ls_, l, r)
+            gold = ref.rmq_ref(x, l, r)
+            for name, (idx, val) in (("ops.query(fused=False)", two), ("ops.lane_query", lq)):
+                _require(
+                    bool((idx.cpu().numpy() == gold).all() and (val.cpu().numpy() == x[gold]).all()),
+                    f"{name} != oracle",
+                )
+        print(f"[served] ops.query(fused=False) and ops.lane_query: 8 x 4096 small ranges at n={N_MAIN}, all equal to the oracle")
+
+    drive("two-pass and lane entry points 2^26", entry_point_batches, ("rmq_partials", "lane_partials"))
     for name, c in counts.items():
-        _require(c > 0, f"{name} was not launched on the served path")
+        _require(c > 0, f"{name} was not launched on the served paths")
     _device_busy_share(torch, np, dev)
 
-    # --- phase 5: the kernels line and the result ---------------------------
+    # --- phase 6: the kernels line and the result ---------------------------
+    fq = "src/repro/kernels/fused_query.py"
     source = {
         "block_min": ("src/repro_torch/csrc/block_min.cu", "src/repro/kernels/block_min.py:47"),
-        "fused_query[resident]": ("src/repro_torch/csrc/fused_query.cu", "src/repro/kernels/fused_query.py:310"),
-        "fused_query[dma]": ("src/repro_torch/csrc/fused_query.cu", "src/repro/kernels/fused_query.py:310"),
+        "fused_query[resident]": ("src/repro_torch/csrc/fused_query.cu", f"{fq}:310"),
+        "fused_query[dma]": ("src/repro_torch/csrc/fused_query.cu", f"{fq}:310"),
+        "fused_query_packed[packed32,resident]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:599"),
+        "fused_query_packed[packed32,dma]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:599"),
+        "fused_query_packed[quantized]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:561"),
+        "rmq_partials": ("src/repro_torch/csrc/rmq_partials.cu", "src/repro/kernels/rmq_query.py:107"),
+        "lane_partials": ("src/repro_torch/csrc/lane_partials.cu", "src/repro/kernels/lane_query.py:104"),
     }
     rows = []
     for name, m in kernels.items():
@@ -348,8 +670,9 @@ def main() -> int:
                 "library_ms": m["library_ms"],
             }
         )
-    _require(len(rows) == 3, "a kernel has no measurement")
+    _require(len(rows) == 8, f"a kernel has no measurement ({sorted(kernels)})")
     print(json.dumps({"kernels": rows}))
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s (imports and kernel build included)")
     print(card)
     print(
         json.dumps(

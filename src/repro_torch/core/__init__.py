@@ -4,6 +4,9 @@
     structure over block minima).
   * ``block_rmq``    — the paper's blocked structure in plain PyTorch; the
     oracle of the CUDA kernels in ``repro_torch.kernels``.
+  * ``packing``      — order-isomorphic (value, index) words (packed64,
+    packed32, quantized) for the packed halves of the structures.
+  * ``lane_rmq``     — the O(1) gather engine over 128-wide lane blocks.
   * ``hybrid``       — range-adaptive dispatch: short ranges to the blocked
     path (the fused CUDA kernel on the card), long ranges to the table.
   * ``build``        — the staged BuildPlan pipeline every build lowers
@@ -11,6 +14,15 @@
   * ``registry``     — one ``(build, query) -> (idx, val)`` spec per engine.
 """
 
-from . import block_rmq, build, hybrid, ref, registry, sparse_table
+from . import block_rmq, build, hybrid, lane_rmq, packing, ref, registry, sparse_table
 
-__all__ = ["block_rmq", "build", "hybrid", "ref", "registry", "sparse_table"]
+__all__ = [
+    "block_rmq",
+    "build",
+    "hybrid",
+    "lane_rmq",
+    "packing",
+    "ref",
+    "registry",
+    "sparse_table",
+]

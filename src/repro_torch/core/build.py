@@ -25,7 +25,7 @@ import torch
 from repro_torch._device import resolve
 from repro_torch.obs import trace as obs_trace
 
-from . import block_rmq, sparse_table
+from . import block_rmq, lane_rmq, packing, sparse_table
 
 __all__ = [
     "BuildPlan",
@@ -83,6 +83,29 @@ def _resolve_threshold(threshold, n: int) -> int:
     if threshold in ("cached", "calibrated"):
         raise _not_ported(f"threshold={threshold!r} (the calibration cache)", "queue 1 step 4")
     raise ValueError(f"threshold must be an int or None; got {threshold!r}")
+
+
+def _norm_packed(packed) -> Optional[str]:
+    """Normalise the ``packed=`` build kwarg to a layout request or ``None``.
+
+    ``None``/``False``/``"unpacked"`` -> unpacked structures; ``True`` ->
+    ``"auto"``; otherwise one of ``packing.PACKED_LAYOUTS`` or ``"auto"``.
+    The request resolves to a concrete ``PackSpec`` only at execute time
+    (``packing.spec_for``): the winning layout depends on the data.
+    """
+    if packed is None or packed is False:
+        return None
+    if packed is True:
+        return "auto"
+    packed = str(packed)
+    if packed == "unpacked":
+        return None
+    if packed != "auto" and packed not in packing.PACKED_LAYOUTS:
+        raise ValueError(
+            f"packed must be one of {('auto',) + packing.PACKED_LAYOUTS}, "
+            f"a bool, or None; got {packed!r}"
+        )
+    return packed
 
 
 def _resolve_kernel_config(kernel_config, block_size: Optional[int] = None):
@@ -219,37 +242,66 @@ def _single_host_plan(engine, n, build_fn, device, *, with_x=False, meta=None) -
 
 
 @_planner("sparse_table")
-def _plan_sparse_table(n, *, device):
-    return _single_host_plan("sparse_table", n, sparse_table.build, device, with_x=True)
-
-
-@_planner("block")
-def _plan_block(n, *, device, block_size=128):
+def _plan_sparse_table(n, *, device, packed=None):
+    layout = _norm_packed(packed)
+    if layout is None:
+        return _single_host_plan("sparse_table", n, sparse_table.build, device, with_x=True)
+    # Packed state is ``((PackedSparseTable, PackSpec), x)``: the registry
+    # query dispatches on the tuple shape.
     return _single_host_plan(
-        "block",
+        "sparse_table",
         n,
-        lambda x: block_rmq.build(x, block_size, device=device),
+        lambda x: sparse_table.build_packed(x, layout=layout),
         device,
-        meta={"block_size": block_size},
+        with_x=True,
+        meta={"packed": layout},
     )
 
 
+@_planner("block")
+def _plan_block(n, *, device, block_size=128, packed=None):
+    layout = _norm_packed(packed)
+    if layout is None:
+        build_fn = lambda x: block_rmq.build(x, block_size, device=device)
+    else:
+        build_fn = lambda x: block_rmq.build_packed(x, block_size, layout=layout, device=device)
+    return _single_host_plan(
+        "block", n, build_fn, device, meta={"block_size": block_size, "packed": layout}
+    )
+
+
+@_planner("lane")
+def _plan_lane(n, *, device):
+    return _single_host_plan("lane", n, lambda x: lane_rmq.build(x, device=device), device)
+
+
 @_planner("fused")
-def _plan_fused(n, *, device, block_size=None, kernel_config=None):
+def _plan_fused(n, *, device, block_size=None, kernel_config=None, packed=None):
+    layout = _norm_packed(packed)
     cfg = _resolve_kernel_config(kernel_config, block_size)
-    # An explicit block_size pins the config's, so the two never disagree.
+    # An explicit block_size pins the config's, so the two never disagree;
+    # the config's own layout rides along unless ``packed=`` pins one.
     bs = block_size if block_size is not None else cfg.block_size
+    if layout is None and cfg.layout != "unpacked":
+        layout = cfg.layout
+    if layout == "packed64":
+        raise ValueError(
+            "packed64 words are int64 and have no kernel; use sparse_table/block/"
+            "hybrid with packed=, or packed32/quantized for the fused kernels"
+        )
 
     def build_fn(x):
         from repro_torch.kernels import ops
 
-        return ops.build(x, bs, device=device)
+        if layout is None:
+            return ops.build(x, bs, device=device)
+        return ops.build_packed(x, bs, layout=layout, device=device)
 
     def fin(state):
         state["result"] = (state["built"], cfg)
         return state
 
-    meta = {"block_size": bs, "kernel_config": cfg}
+    meta = {"block_size": bs, "kernel_config": cfg, "packed": layout}
     plan = _single_host_plan("fused", n, build_fn, device, meta=meta)
     stages = tuple(BuildStage("finalize", fin) if s.name == "finalize" else s for s in plan.stages)
     return plan._replace(stages=stages)
@@ -264,7 +316,9 @@ def _plan_hybrid(
     threshold=None,
     use_kernels=None,
     kernel_config=None,
+    packed=None,
 ):
+    pack_layout = _norm_packed(packed)
     if use_kernels is None:
         # The reference asks for a TPU backend; the port for a CUDA structure.
         use_kernels = device.type == "cuda"
@@ -276,6 +330,19 @@ def _plan_hybrid(
 
     def local(state):
         x = state["x"]
+        if pack_layout is not None:
+            # One spec for both tiers, so words of both compare in one order.
+            spec = packing.spec_for(x, n, pack_layout)
+            state["spec"] = spec
+            if use_kernels and spec.layout in ("packed32", "quantized"):
+                from repro_torch.kernels import ops
+
+                state["blocked"], _ = ops.build_packed(x, block_size, spec=spec, device=device)
+            else:
+                # packed64 (int64 words) has no kernel: plain packed structures serve it.
+                state["blocked"], _ = block_rmq.build_packed(x, block_size, spec=spec, device=device)
+            state["st"], _ = sparse_table.build_packed(x, spec=spec)
+            return state
         if use_kernels:
             from repro_torch.kernels import ops
 
@@ -289,7 +356,7 @@ def _plan_hybrid(
         from . import hybrid
 
         state["result"] = hybrid.assemble(
-            state["blocked"], state["st"], state["x"], thr, use_kernels, cfg
+            state["blocked"], state["st"], state["x"], thr, use_kernels, cfg, spec=state.get("spec")
         )
         return state
 
@@ -307,5 +374,6 @@ def _plan_hybrid(
             "threshold": thr,
             "use_kernels": bool(use_kernels),
             "kernel_config": cfg,
+            "packed": pack_layout,
         },
     )

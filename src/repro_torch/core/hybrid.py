@@ -6,8 +6,11 @@ by range length against a threshold: short ranges go to the blocked path
 (the fused CUDA kernel ``kernels.ops`` when ``use_kernels``, else the plain
 ``block_rmq``), long ranges to the sparse table over the raw array, and the
 two result sets are scattered back into batch order. Results equal
-``block_rmq.query`` bit for bit. Port of ``repro/core/hybrid.py``
-(``calibrate`` is a later slice, see ROADMAP.md).
+``block_rmq.query`` bit for bit. With ``packed=`` both tiers hold packed
+(value, index) words (``core.packing``); the short path then runs the
+``fused_query_packed`` kernel for packed32 and quantized, and the plain
+packed query for packed64, which has no kernel. Port of
+``repro/core/hybrid.py`` (``calibrate`` is a later slice, see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ _INT32_MAX = np.iinfo(np.int32).max
 class HybridRMQ(NamedTuple):
     """Both constituent structures, routing threshold, path closures."""
 
-    blocked: object  # BlockRMQ (plain path) | kernels.ops.FusedRMQ (kernel path)
-    st: sparse_table.SparseTable  # doubling table over the raw array
+    blocked: object  # BlockRMQ | ops.FusedRMQ | PackedBlockRMQ | ops.PackedFusedRMQ
+    st: object  # SparseTable | PackedSparseTable over the raw array
     x: torch.Tensor  # raw values (answers value lookups for the long path)
     threshold: int  # range lengths <= threshold go to the blocked path
     use_kernels: bool  # short path: fused CUDA kernel vs plain block_rmq
@@ -60,6 +63,7 @@ def build(
     threshold: int | None = None,
     use_kernels: bool | None = None,
     kernel_config=None,
+    packed=None,
     device=None,
 ) -> HybridRMQ:
     """Build both constituent engines on ``device`` (via the ``core.build`` plan).
@@ -67,7 +71,9 @@ def build(
     ``threshold=None`` -> the sqrt(n) default; an int pins it.
     ``use_kernels=None`` -> the kernels exactly when the structure lives on a
     CUDA device. ``kernel_config`` is None (the default geometry) or a
-    ``kernels.tuning.KernelConfig``.
+    ``kernels.tuning.KernelConfig``. ``packed`` opts both tiers into packed
+    words: None/False -> unpacked, True/"auto" -> packed32 when the data's
+    key span fits, else packed64, or an explicit layout name.
     """
     from . import build as build_mod  # deferred: build.py hosts the planner
 
@@ -78,22 +84,37 @@ def build(
         threshold=threshold,
         use_kernels=use_kernels,
         kernel_config=kernel_config,
+        packed=packed,
         device=device,
     )
 
 
-def assemble(blocked, st, x, threshold: int, use_kernels: bool, kernel_config=None) -> HybridRMQ:
-    """A ``HybridRMQ`` over built parts: the path closures bound to them."""
-    if use_kernels:
-        from repro_torch.kernels import ops
+def assemble(
+    blocked, st, x, threshold: int, use_kernels: bool, kernel_config=None, spec=None
+) -> HybridRMQ:
+    """A ``HybridRMQ`` over built parts: the path closures bound to them.
 
-        short_fn = lambda l, r: ops.query(blocked, l, r, config=kernel_config)
+    ``spec`` is the ``PackSpec`` of packed parts (None for unpacked ones).
+    """
+    if spec is not None:
+        if use_kernels and spec.layout in ("packed32", "quantized"):
+            from repro_torch.kernels import ops
+
+            short_fn = lambda l, r: ops.query_packed(blocked, spec, l, r, config=kernel_config)
+        else:
+            short_fn = lambda l, r: block_rmq.query_packed(blocked, spec, l, r)
+        long_fn = lambda l, r: sparse_table.query_packed(st, spec, l, r)
     else:
-        short_fn = lambda l, r: block_rmq.query(blocked, l, r)
+        if use_kernels:
+            from repro_torch.kernels import ops
 
-    def long_fn(l, r):
-        idx = sparse_table.query(st, l, r)
-        return idx, x[idx]
+            short_fn = lambda l, r: ops.query(blocked, l, r, config=kernel_config)
+        else:
+            short_fn = lambda l, r: block_rmq.query(blocked, l, r)
+
+        def long_fn(l, r):
+            idx = sparse_table.query(st, l, r)
+            return idx, x[idx]
 
     return HybridRMQ(
         blocked=blocked,

@@ -7,15 +7,18 @@ state's device. Engines whose native query returns only indices are wrapped
 with a value gather. Every build lowers through the ``core.build``
 BuildPlan pipeline; ``plan_for_serving``/``build_for_serving`` resolve the
 plan from the declared serving capabilities (``serve_plan``), validating
-kwargs at one enforcement point. Port of ``repro/core/registry.py`` for the
-single-device engines of the served path.
+kwargs at one enforcement point. Engines with a ``packed`` build kwarg build
+packed word structures on request; their state is then a ``(structure,
+PackSpec)`` pair. Port of ``repro/core/registry.py`` for the single-device
+engines (the serve plans take the deterministic policies: the cached
+threshold and kernel-config policies are a later slice).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
-from . import block_rmq, build as build_mod, hybrid, sparse_table
+from . import block_rmq, build as build_mod, hybrid, lane_rmq, packing, sparse_table
 
 __all__ = [
     "EngineSpec",
@@ -53,10 +56,24 @@ def _simple_serve_plan(planner: str, **fixed):
     return serve_plan
 
 
+def _is_packed_state(s) -> bool:
+    """Packed planner results are ``(structure, PackSpec)`` pairs."""
+    return isinstance(s, tuple) and len(s) == 2 and isinstance(s[1], packing.PackSpec)
+
+
 def _sparse_table_query(state, l, r):
     table, x = state
+    if _is_packed_state(table):
+        return sparse_table.query_packed(*table, l, r)
     idx = sparse_table.query(table, l, r)
     return idx, x[idx]
+
+
+def _block_query(state, l, r):
+    """Blocked-engine query, dispatching on the packed tuple shape."""
+    if _is_packed_state(state):
+        return block_rmq.query_packed(*state, l, r)
+    return block_rmq.query(state, l, r)
 
 
 def _kernels_engine(block_size: int, kernel_config=None, doc: str = "") -> EngineSpec:
@@ -71,6 +88,8 @@ def _kernels_engine(block_size: int, kernel_config=None, doc: str = "") -> Engin
         from repro_torch.kernels import ops
 
         s, cfg = state
+        if _is_packed_state(s):
+            return ops.query_packed(*s, l, r, config=cfg)
         return ops.query(s, l, r, config=cfg)
 
     def serve_plan(n, device, **kw):
@@ -84,7 +103,7 @@ def _kernels_engine(block_size: int, kernel_config=None, doc: str = "") -> Engin
             "fused", x, device=device, block_size=block_size, kernel_config=kernel_config
         ),
         query,
-        build_kwargs=frozenset({"block_size", "kernel_config"}),
+        build_kwargs=frozenset({"block_size", "kernel_config", "packed"}),
         serve_plan=serve_plan,
         doc=doc or "fused blocked-RMQ CUDA kernel (plain PyTorch on CPU)",
     )
@@ -94,20 +113,29 @@ ENGINES: dict = {
     "sparse_table": EngineSpec(
         lambda x, device=None: build_mod.build("sparse_table", x, device=device),
         _sparse_table_query,
+        build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("sparse_table"),
         doc="O(1) doubling-table lookups",
     ),
     "block128": EngineSpec(
         lambda x, device=None: build_mod.build("block", x, device=device, block_size=128),
-        block_rmq.query,
+        _block_query,
+        build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("block", block_size=128),
         doc="plain PyTorch blocked, bs=128",
     ),
     "block256": EngineSpec(
         lambda x, device=None: build_mod.build("block", x, device=device, block_size=256),
-        block_rmq.query,
+        _block_query,
+        build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("block", block_size=256),
         doc="plain PyTorch blocked, bs=256",
+    ),
+    "lane": EngineSpec(
+        lambda x, device=None: build_mod.build("lane", x, device=device),
+        lane_rmq.query,
+        serve_plan=_simple_serve_plan("lane"),
+        doc="lane-RMQ: O(1) gathers over 128-wide lane blocks",
     ),
     "fused128": _kernels_engine(128),
     "fused128_dma": _kernels_engine(
@@ -119,9 +147,21 @@ ENGINES: dict = {
     "hybrid": EngineSpec(
         lambda x, device=None: build_mod.build("hybrid", x, device=device, block_size=128),
         hybrid.query,
-        build_kwargs=frozenset({"block_size", "threshold", "kernel_config"}),
+        build_kwargs=frozenset({"block_size", "threshold", "kernel_config", "packed"}),
         serve_plan=_simple_serve_plan("hybrid", block_size=128),
         doc="range-adaptive blocked/sparse-table crossover dispatcher",
+    ),
+    # The packed-word hybrid: both tiers carry (value, index) words; the
+    # layout resolves per array ("auto": packed32 when the key span fits,
+    # else packed64).
+    "packed_hybrid": EngineSpec(
+        lambda x, device=None: build_mod.build(
+            "hybrid", x, device=device, block_size=128, packed="auto"
+        ),
+        hybrid.query,
+        build_kwargs=frozenset({"block_size", "threshold", "kernel_config", "packed"}),
+        serve_plan=_simple_serve_plan("hybrid", block_size=128, packed="auto"),
+        doc="hybrid over packed (value, index) word planes",
     ),
 }
 

@@ -15,7 +15,9 @@
 // warp is one coalesced 128-byte read. A lane keeps its strictly smaller
 // value (earlier positions win ties within the lane), then a shuffle
 // reduction over (value, position) keeps the lower position on equal
-// values. The value written is the one the leftmost minimum holds. The grid
+// values. The value written is the row's minimum as the reference kernel's
+// ``jnp.min`` gives it (-0.0 when the minimum is a zero of both signs:
+// common.cuh ``zero_sign``), the lane the leftmost equal to it. The grid
 // covers nb rows and the last block masks rows past nb, so rows need no
 // padding to a tile multiple.
 
@@ -40,6 +42,7 @@ __global__ void block_min_kernel(const T* __restrict__ x, T* __restrict__ val,
     }
   }
   warp_leftmost_min(best, pos);
+  best = zero_sign(p, 0, bs - 1, bs, lane, best);
   if (lane == 0) {
     val[row] = best;
     idx[row] = pos;

@@ -1,5 +1,6 @@
 // Shared device helpers of the RMQ kernels: the padding value of each value
-// type and the leftmost warp reduction.
+// type, the leftmost warp reduction, the sign of a zero minimum and the
+// masked leftmost min of one row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +36,53 @@ __device__ __forceinline__ void warp_leftmost_min(T& v, int& pos) {
       pos = op;
     }
   }
+}
+
+// The sign of a zero minimum. The reference kernels' ``vmin = jnp.min(row)``
+// is -0.0 when the minimum is zero and a -0.0 takes part, whichever zero
+// comes first; the pair reduction above keeps the leftmost zero's bits. When
+// (and only when) the warp's minimum ``v`` is a zero, its lanes scan
+// row[lo..hi] again for a -0.0 and vote: rows with a nonzero minimum pay one
+// compare. Integers have one zero.
+__device__ __forceinline__ int32_t zero_sign(const int32_t*, int, int, int, int, int32_t v) {
+  return v;
+}
+__device__ __forceinline__ float zero_sign(const float* __restrict__ row, int lo, int hi, int bs,
+                                           int lane, float v) {
+  if (v != 0.0f) return v;  // the same v in every lane: the warp branches together
+  bool neg = false;
+  for (int p = lane; p < bs; p += 32) {
+    if (p >= lo && p <= hi) neg |= __float_as_int(row[p]) == (int)0x80000000;
+  }
+  return __any_sync(0xffffffffu, neg) ? -0.0f : 0.0f;
+}
+
+// Masked leftmost min of row[lo..hi] by one warp: lane t reads elements t,
+// t+32, ... (one coalesced 128-byte read per step for 4-byte values); lanes
+// outside [lo, hi] skip the load and carry maxval at their own position,
+// exactly the reference's masked lanes, so even a range whose minimum is
+// maxval resolves as ``min(where(x == vmin, iota, bs))`` does, and the value
+// is ``jnp.min``'s (zero_sign). Every lane ends with the pair.
+template <typename T>
+__device__ __forceinline__ void row_min(const T* __restrict__ row, int lo, int hi, int bs,
+                                        int lane, T& v, int& pos) {
+  const T big = MaxVal<T>::get();
+  v = big;
+  pos = bs;
+  for (int p = lane; p < bs; p += 32) {
+    const T x = (p >= lo && p <= hi) ? row[p] : big;
+    if (x < v || (x == v && p < pos)) {
+      v = x;
+      pos = p;
+    }
+  }
+  warp_leftmost_min(v, pos);
+  v = zero_sign(row, lo, hi, bs, lane, v);
+}
+
+// The warp's query id: ``tile`` warps (queries) per thread block.
+__device__ __forceinline__ long long warp_query() {
+  return (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
 }
 
 }  // namespace repro

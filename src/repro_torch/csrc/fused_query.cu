@@ -40,22 +40,6 @@
 
 namespace repro {
 
-template <typename T>
-__device__ __forceinline__ void row_min(const T* __restrict__ row, int lo, int hi, int bs,
-                                        int lane, T& v, int& pos) {
-  const T big = MaxVal<T>::get();
-  v = big;
-  pos = bs;
-  for (int p = lane; p < bs; p += 32) {
-    const T x = (p >= lo && p <= hi) ? row[p] : big;
-    if (x < v || (x == v && p < pos)) {
-      v = x;
-      pos = p;
-    }
-  }
-  warp_leftmost_min(v, pos);
-}
-
 template <typename T, bool kDma>
 __global__ void fused_query_kernel(const T* __restrict__ xb, const T* __restrict__ bmin_val,
                                    const int32_t* __restrict__ bmin_gidx,
@@ -66,7 +50,7 @@ __global__ void fused_query_kernel(const T* __restrict__ xb, const T* __restrict
                                    int32_t* __restrict__ out_idx, T* __restrict__ out_val, int B,
                                    int nb, int bs) {
   const int lane = threadIdx.x & 31;
-  const long long q = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long q = warp_query();
   if (q >= B) return;  // whole warp leaves together
   const T big = MaxVal<T>::get();
 

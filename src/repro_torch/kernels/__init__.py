@@ -1,4 +1,4 @@
-"""CUDA kernels of the served RMQ path (+ ops wrappers, plain oracles).
+"""CUDA kernels of the RMQ engines (+ ops wrappers, plain oracles).
 
 Each kernel module holds the wrapper (kernel for CUDA tensors, plain
 PyTorch version for CPU tensors) and a launch counter; ``_build`` compiles
@@ -7,6 +7,17 @@ PyTorch version for CPU tensors) and a launch counter; ``_build`` compiles
 
 from . import ops, ref, tuning
 from .block_min import block_min
-from .fused_query import fused_query
+from .fused_query import fused_query, fused_query_packed
+from .lane_query import lane_partials
+from .rmq_query import rmq_partials
 
-__all__ = ["ops", "ref", "tuning", "block_min", "fused_query"]
+__all__ = [
+    "ops",
+    "ref",
+    "tuning",
+    "block_min",
+    "fused_query",
+    "fused_query_packed",
+    "lane_partials",
+    "rmq_partials",
+]

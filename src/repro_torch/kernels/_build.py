@@ -29,7 +29,13 @@ from pathlib import Path
 __all__ = ["SOURCES", "build_dir", "check", "library", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("block_min.cu", "fused_query.cu")
+SOURCES = (
+    "block_min.cu",
+    "fused_query.cu",
+    "fused_query_packed.cu",
+    "rmq_partials.cu",
+    "lane_partials.cu",
+)
 _HEADERS = ("common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +48,14 @@ _SIGNATURES = {
     "repro_block_min_i32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_fused_query_f32": (_P,) * 10 + (_I,) * 5 + (_P,),
     "repro_fused_query_i32": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "repro_fused_query_packed32_f32": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "repro_fused_query_packed32_i32": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "repro_fused_query_quantized_f32": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "repro_fused_query_quantized_i32": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "repro_rmq_partials_f32": (_P,) * 8 + (_I,) * 4 + (_P,),
+    "repro_rmq_partials_i32": (_P,) * 8 + (_I,) * 4 + (_P,),
+    "repro_lane_partials_f32": (_P,) * 11 + (_I,) * 3 + (_P,),
+    "repro_lane_partials_i32": (_P,) * 11 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

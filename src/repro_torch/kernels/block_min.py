@@ -13,7 +13,7 @@ import threading
 
 import torch
 
-from repro_torch.core.block_rmq import leftmost_min
+from repro_torch.core.block_rmq import kernel_leftmost_min
 
 from . import _build
 
@@ -24,10 +24,10 @@ _count_lock = threading.Lock()
 
 
 def block_min_plain(x_blocks: torch.Tensor):
-    """The Pallas kernel's arithmetic in PyTorch: ``vmin = min(x)`` per row,
-    the lane as ``min(where(x == vmin, iota, bs))``, the value read at that
-    lane (``core.block_rmq.leftmost_min``)."""
-    return leftmost_min(x_blocks)
+    """The Pallas kernel's arithmetic in PyTorch: ``vmin = min(x)`` per row
+    (-0.0 below +0.0, as ``jnp.min``), the lane as
+    ``min(where(x == vmin, iota, bs))`` (``core.block_rmq.kernel_leftmost_min``)."""
+    return kernel_leftmost_min(x_blocks)
 
 
 def block_min(x_blocks: torch.Tensor, *, tile_rows: int = 8):

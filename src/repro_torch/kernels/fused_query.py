@@ -16,7 +16,11 @@ for CPU tensors. The kernel replaces the Pallas TPU megakernel
 ``fetch="auto"`` picks by ``tuning.RESIDENT_NB_CEILING``. Both strategies
 return the same bits: the lo cell starts at or before the hi cell, so
 preferring lo on value ties is the leftmost rule ``_pick_left`` applies.
-The source note of the kernel gives its bound and its design.
+
+``fused_query_packed`` does the same over the packed word structures of
+``core.packing`` (``csrc/fused_query_packed.cu``, replacing the reference's
+``fused_query_packed``): packed32 with both fetches, and quantized. The
+source notes of the kernels give their bounds and designs.
 """
 
 from __future__ import annotations
@@ -27,13 +31,22 @@ import threading
 import torch
 
 from repro_torch._device import as_index
-from repro_torch.core.block_rmq import maxval
+from repro_torch.core import packing
+from repro_torch.core.block_rmq import maxval, split
 from repro_torch.core.sparse_table import exact_log2
 
 from . import _build
+from .rmq_query import rmq_partials_plain
 from .tuning import DEFAULT_TILE, resolve_fetch
 
-__all__ = ["fused_query", "fused_query_plain", "interior_tables", "DEFAULT_TILE"]
+__all__ = [
+    "fused_query",
+    "fused_query_packed",
+    "fused_query_packed_plain",
+    "fused_query_plain",
+    "interior_tables",
+    "DEFAULT_TILE",
+]
 
 _logger = logging.getLogger(__name__)
 _DTYPES = {torch.float32: "f32", torch.int32: "i32"}
@@ -50,44 +63,38 @@ def interior_tables(bmin_val: torch.Tensor, bmin_gidx: torch.Tensor, st_idx: tor
     return bmin_val[st_idx], bmin_gidx[st_idx]
 
 
+def decompose(l, r, nb: int, bs: int):
+    """The per-query scalars of the reference wrappers (fused_query.py:225-237
+    and :519-531): ``(bl, br, ls, le, re, hasint, k, ilo, bpos)``."""
+    bl, br, ls, re, le = split(l, r, bs)
+    ilo = torch.clamp(bl + 1, 0, nb - 1)
+    ihi = torch.maximum(torch.clamp(br - 1, 0, nb - 1), ilo)
+    k = exact_log2(ihi - ilo + 1)
+    bpos = ihi - (1 << k) + 1
+    return bl, br, ls, le, re, (br - bl) >= 2, k, ilo, bpos
+
+
+def merge_interior(pv, pi, iv, ii, int_start):
+    """The final merge of every blocked query (fused_query.py:157-169): the
+    partial wins only when strictly smaller, or tied with an index left of
+    the interior's first element ``int_start``. Returns (idx, val)."""
+    prefer_partial = (pv < iv) | ((pv == iv) & (pi < int_start))
+    return torch.where(prefer_partial, pi, ii), torch.where(prefer_partial, pv, iv)
+
+
 def fused_query_plain(
     x_blocks, bmin_val, bmin_gidx, st_idx, l, r, *, st_val=None, st_gidx=None, fetch="resident"
 ):
     """The reference kernel's arithmetic in PyTorch, the whole batch at once.
 
-    The scalar decomposition of ``fused_query.py:224-237`` (with the
-    reference ``exact_log2``), the masked-iota partials, the interior cells
-    of ``fetch`` and the merges of ``fused_query.py:157-169``. ``l``/``r``
-    are int32 tensors on ``x_blocks``'s device.
+    The scalar decomposition (:func:`decompose`, with the reference
+    ``exact_log2``), the masked-iota partials (``rmq_partials_plain``), the
+    interior cells of ``fetch`` and the merges of ``fused_query.py:157-169``.
+    ``l``/``r`` are int32 tensors on ``x_blocks``'s device.
     """
     nb, bs = x_blocks.shape
-    big = maxval(x_blocks.dtype)
-    bl = l // bs
-    br = r // bs
-    ls = l - bl * bs
-    re = r - br * bs
-    le = torch.where(bl == br, re, bs - 1)
-    hasint = (br - bl) >= 2
-    ilo = torch.clamp(bl + 1, 0, nb - 1)
-    ihi = torch.maximum(torch.clamp(br - 1, 0, nb - 1), ilo)
-    k = exact_log2(ihi - ilo + 1)
-    bpos = ihi - (1 << k) + 1
-
-    lanes = torch.arange(bs, dtype=torch.int32, device=x_blocks.device)[None, :]
-    ml = torch.where((lanes >= ls[:, None]) & (lanes <= le[:, None]), x_blocks[bl], big)
-    lv = ml.min(dim=1).values
-    li = torch.where(ml == lv[:, None], lanes, bs).min(dim=1).values
-    lg = bl * bs + li
-
-    mr = torch.where(lanes <= re[:, None], x_blocks[br], big)
-    rv = mr.min(dim=1).values
-    rv = torch.where(br > bl, rv, big)
-    ri = torch.where(mr == rv[:, None], lanes, bs).min(dim=1).values
-    rg = br * bs + ri
-
-    take_l = lv <= rv  # left candidate has smaller indices: leftmost ties
-    pv = torch.where(take_l, lv, rv)
-    pi = torch.where(take_l, lg, rg)
+    bl, br, ls, le, re, hasint, k, ilo, bpos = decompose(l, r, nb, bs)
+    pv, pi = rmq_partials_plain(x_blocks, bl, br, ls, le, re)
 
     if fetch == "resident":
         a = st_idx[k, ilo]
@@ -97,20 +104,15 @@ def fused_query_plain(
         av, bv = st_val[k, ilo], st_val[k, bpos]
         ai, bi = st_gidx[k, ilo], st_gidx[k, bpos]
     take_lo = av <= bv
-    iv = torch.where(hasint, torch.where(take_lo, av, bv), big)
+    iv = torch.where(hasint, torch.where(take_lo, av, bv), maxval(x_blocks.dtype))
     ii = torch.where(take_lo, ai, bi)
-
-    # Prefer the partial only when strictly smaller, or tied with an index
-    # left of the interior block range.
-    int_start = (bl + 1) * bs
-    prefer_partial = (pv < iv) | ((pv == iv) & (pi < int_start))
-    return torch.where(prefer_partial, pi, ii), torch.where(prefer_partial, pv, iv)
+    return merge_interior(pv, pi, iv, ii, (bl + 1) * bs)
 
 
-def _check_leaf(name, t, dtype, device, ndim):
+def _check_leaf(name, t, dtype, device, ndim, what="fused_query"):
     if t.dtype != dtype or t.device != device or t.ndim != ndim or not t.is_contiguous():
         raise ValueError(
-            f"fused_query: {name} must be a contiguous {ndim}-D {dtype} tensor on {device}, "
+            f"{what}: {name} must be a contiguous {ndim}-D {dtype} tensor on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
 
@@ -212,3 +214,137 @@ def fused_query(
 # and per fetch strategy.
 fused_query.launches = 0
 fused_query.launches_by_fetch = {"resident": 0, "dma": 0}
+
+
+# --- packed megakernel ------------------------------------------------------
+#
+# packed32: every table the kernel touches is one plane of int32 words, so
+# each partial is a masked word min, the interior is min(stw[k, ilo],
+# stw[k, bpos]) and the answer the min of three words. quantized: raw-value
+# partials, (bucket, exact argmin) interior words whose bucket ties fall back
+# to the exact values bmin_val[idx // bs]; resident only. packed64 (int64
+# words) has no kernel, as in the reference: it serves through
+# ``core.block_rmq.query_packed``.
+
+
+def fused_query_packed_plain(blocks, stw, l, r, *, spec, bmin_val=None):
+    """The reference kernels' arithmetic (``_kernel_packed`` and
+    ``_kernel_quantized``, fused_query.py:351-477) in PyTorch, the whole
+    batch at once. Both packed32 fetches read the same two cells."""
+    nb, bs = blocks.shape
+    bl, br, ls, le, re, hasint, k, ilo, bpos = decompose(l, r, nb, bs)
+    wa = stw[k, ilo]
+    wb = stw[k, bpos]
+    if spec.layout == "packed32":
+        pad = packing.pad_word(spec)
+        lanes = torch.arange(bs, dtype=torch.int32, device=blocks.device)[None, :]
+        inside = (lanes >= ls[:, None]) & (lanes <= le[:, None])
+        lw = torch.where(inside, blocks[bl], pad).min(dim=1).values
+        rw = torch.where(lanes <= re[:, None], blocks[br], pad).min(dim=1).values
+        rw = torch.where(br > bl, rw, pad)
+        iw = torch.where(hasint, torch.minimum(wa, wb), pad)
+        w = torch.minimum(torch.minimum(lw, rw), iw)
+        return packing.unpack_idx(spec, w), packing.unpack_val(spec, w)
+
+    pv, pi = rmq_partials_plain(blocks, bl, br, ls, le, re)
+    ai = packing.unpack_idx(spec, wa)
+    bi = packing.unpack_idx(spec, wb)
+    ava = bmin_val[ai // bs]
+    avb = bmin_val[bi // bs]
+    collide = (wa >> spec.idx_bits) == (wb >> spec.idx_bits)
+    take_a = torch.where(collide, ava <= avb, wa <= wb)
+    iv = torch.where(hasint, torch.where(take_a, ava, avb), maxval(blocks.dtype))
+    ii = torch.where(take_a, ai, bi)
+    return merge_interior(pv, pi, iv, ii, (bl + 1) * bs)
+
+
+def fused_query_packed(
+    blocks: torch.Tensor,  # (nb, bs): packed32 words | raw values (quantized)
+    stw: torch.Tensor,  # (K, nb) int32 packed doubling table over block minima
+    l,
+    r,
+    *,
+    spec,  # packing.PackSpec
+    bmin_val: torch.Tensor | None = None,  # (nb,) exact minima (quantized only)
+    tile: int = DEFAULT_TILE,
+    fetch: str = "auto",
+):
+    """Packed fused blocked RMQ. Returns (idx (B,) int32, value (B,)).
+
+    One kernel launch per batch on the card over single-plane structures:
+    packed32 (both fetch strategies) and quantized (resident only). packed64
+    raises, as in the reference.
+    """
+    if spec.layout == "packed64":
+        raise ValueError(
+            "packed64 words are int64 and have no kernel path; serve packed64 "
+            "through core.block_rmq.query_packed"
+        )
+    if spec.layout not in ("packed32", "quantized"):
+        raise ValueError(f"fused_query_packed wants packed32|quantized, got {spec.layout!r}")
+    nb, bs = blocks.shape
+    fetch = resolve_fetch(fetch, nb)
+    if spec.layout == "quantized":
+        if bmin_val is None:
+            raise ValueError("quantized fused_query_packed needs the bmin_val plane")
+        fetch = "resident"  # the exact-fallback hop lives in the resident plane
+    dev = blocks.device
+    l = as_index(l, dev)
+    r = as_index(r, dev)
+    if l.ndim != 1 or l.shape != r.shape:
+        raise ValueError(f"l/r must be equal-shape 1-D, got {tuple(l.shape)} / {tuple(r.shape)}")
+    if dev.type == "cpu":
+        return fused_query_packed_plain(blocks, stw, l, r, spec=spec, bmin_val=bmin_val)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_query_packed runs on cuda or cpu tensors, got {dev}")
+    if not 1 <= tile <= 32:
+        raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
+    val_dtype = getattr(torch, spec.dtype)
+    if val_dtype not in _DTYPES:
+        raise TypeError(f"fused_query_packed takes float32 or int32 values, got {spec.dtype}")
+    what = "fused_query_packed"
+    _check_leaf("stw", stw, torch.int32, dev, 2, what)
+    if stw.shape[1] != nb:
+        raise ValueError(f"{what}: stw must have nb = {nb} columns, got {tuple(stw.shape)}")
+    if spec.layout == "packed32":
+        _check_leaf("blocks", blocks, torch.int32, dev, 2, what)
+    else:
+        _check_leaf("blocks", blocks, val_dtype, dev, 2, what)
+        _check_leaf("bmin_val", bmin_val, val_dtype, dev, 1, what)
+        if bmin_val.shape[0] != nb:
+            raise ValueError(f"{what}: bmin_val must have nb = {nb} entries")
+    l = l.contiguous()
+    r = r.contiguous()
+    b = l.shape[0]
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    val = torch.empty(b, dtype=val_dtype, device=dev)
+    if b == 0:
+        return idx, val
+    lib = _build.library()
+    kind = _DTYPES[val_dtype]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if spec.layout == "packed32":
+            body = f"packed32[{fetch}]"
+            code = getattr(lib, f"repro_fused_query_packed32_{kind}")(
+                blocks.data_ptr(), stw.data_ptr(), l.data_ptr(), r.data_ptr(), idx.data_ptr(),
+                val.data_ptr(), b, nb, bs, spec.idx_bits, spec.kmin, int(fetch == "dma"), tile,
+                stream,
+            )
+        else:
+            body = "quantized"
+            code = getattr(lib, f"repro_fused_query_quantized_{kind}")(
+                blocks.data_ptr(), stw.data_ptr(), bmin_val.data_ptr(), l.data_ptr(), r.data_ptr(),
+                idx.data_ptr(), val.data_ptr(), b, nb, bs, spec.idx_bits, tile, stream,
+            )
+        _build.check(code, f"fused_query_packed[{body}]")
+    with _count_lock:
+        fused_query_packed.launches += 1
+        fused_query_packed.launches_by_body[body] += 1
+    return idx, val
+
+
+# Kernel launches since the last reset (plain calls do not count), in all and
+# per body and fetch.
+fused_query_packed.launches = 0
+fused_query_packed.launches_by_body = {"packed32[resident]": 0, "packed32[dma]": 0, "quantized": 0}

@@ -37,8 +37,8 @@ RESIDENT_NB_CEILING = 1 << 13
 class KernelConfig(NamedTuple):
     """Static launch geometry for the fused query kernel.
 
-    ``layout`` keeps the reference's field for parity; only "unpacked"
-    exists in the port so far.
+    ``layout`` is the word layout a fused build takes when ``packed=`` does
+    not pin one ("unpacked", "packed32" or "quantized"), as in the reference.
     """
 
     tile: int = DEFAULT_TILE

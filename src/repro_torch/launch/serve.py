@@ -15,14 +15,19 @@ The engine runs on ``--device`` (default ``cuda``; it fails when CUDA is
 absent, it does not fall back). Engine choices and flag validation derive
 from the registry's capability metadata; builds lower through the staged
 BuildPlan pipeline, whose resolved threshold drives per-regime warmup in
-async mode. Port of ``repro/launch/serve.py`` for the single-device
-engines; the flags of later slices (--calibrate, --tune, --packed,
---qshard, --mutate, --restore, --chaos, --replicas) are not ported yet.
+async mode. ``--packed`` serves packed (value, index) word structures
+(engines declaring a ``packed`` build kwarg, e.g. ``packed_hybrid``); the
+build line names the layout the data resolved to. Port of
+``repro/launch/serve.py`` for the single-device engines; the flags of later
+slices (--calibrate, --tune, --qshard, --mutate, --restore, --chaos,
+--replicas) are not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --engine hybrid --n 67108864 --clients 4 --requests 32 --req-batch 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine packed_hybrid \
+      --packed quantized --n 67108864
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch._device import resolve, to_numpy
 from repro_torch.core import build as build_mod
-from repro_torch.core import ref, registry
+from repro_torch.core import packing, ref, registry
 from repro_torch.obs import Tracer, set_tracer, verify_request_chains
 from repro_torch.serve import RMQServer, ServeConfig
 from repro_torch.serve.workload import make_queries, run_poisson_clients
@@ -63,6 +68,16 @@ def _parser() -> argparse.ArgumentParser:
         default=None,
         help="engine block size (engines declaring a 'block_size' build kwarg; "
         "default: the engine's own)",
+    )
+    ap.add_argument(
+        "--packed",
+        nargs="?",
+        const="auto",
+        choices=["auto", "packed32", "packed64", "quantized"],
+        default=None,
+        help="serve packed (value, index) word structures (core.packing): bare "
+        "--packed (= 'auto') picks the tightest layout the data fits, or name "
+        "one explicitly (engines declaring a 'packed' build kwarg)",
     )
     one = ap.add_argument_group("oneshot")
     one.add_argument("--batch", type=int, default=4096, help="queries per batch")
@@ -118,6 +133,13 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
                 f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
             )
         kw["block_size"] = args.block_size
+    if args.packed is not None:
+        if "packed" not in spec.build_kwargs:
+            ap.error(
+                f"--packed requires an engine with a 'packed' build kwarg; "
+                f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
+            )
+        kw["packed"] = args.packed
     return kw
 
 
@@ -217,8 +239,9 @@ def _span_attrs(engine: str, plan) -> dict:
     """Static launch-span attrs derived from the resolved BuildPlan: the
     engine, routing threshold, and kernel config every exported launch span
     carries."""
-    attrs = {"engine": engine, "layout": "unpacked"}
     meta = plan.meta
+    layout = meta.get("packed")
+    attrs = {"engine": engine, "layout": str(layout) if layout is not None else "unpacked"}
     if meta.get("threshold") is not None:
         attrs["threshold"] = int(meta["threshold"])
     if meta.get("block_size") is not None:
@@ -301,6 +324,21 @@ def main(argv=None) -> None:
         raise SystemExit(1)
 
 
+def _find_spec(obj):
+    """The ``PackSpec`` a packed build resolved to (None when unpacked): in
+    the build state (hybrid) or in a ``(structure, spec)`` result."""
+    if isinstance(obj, packing.PackSpec):
+        return obj
+    if isinstance(obj, dict):
+        obj = tuple(obj.values())
+    if isinstance(obj, (tuple, list)):
+        for v in obj:
+            found = _find_spec(v)
+            if found is not None:
+                return found
+    return None
+
+
 def _run_modes(args, spec, kw, device) -> bool:
     rng = np.random.default_rng(0)
     x = rng.random(args.n, dtype=np.float32)
@@ -310,8 +348,10 @@ def _run_modes(args, spec, kw, device) -> bool:
     # plan's regimes instead of guessing.
     plan = registry.plan_for_serving(args.engine, args.n, device, **kw)
     t0 = time.perf_counter()
-    state = build_mod.execute(plan, x)
+    stages = {}
+    state = build_mod.execute(plan, x, observer=lambda name, st: stages.update(st))
     _sync(device)
+    pspec = _find_spec(stages)
     kcfg = plan.meta.get("kernel_config")
     kmsg = (
         f", kernel tile={kcfg.tile} fetch={kcfg.fetch} bs={kcfg.block_size}"
@@ -321,7 +361,8 @@ def _run_modes(args, spec, kw, device) -> bool:
     print(
         f"[{args.engine}] build {((time.perf_counter() - t0))*1e3:.1f} ms "
         f"(n={args.n}, {plan.layout.num_shards} structure shard(s) x "
-        f"{plan.layout.shard_len} cols{kmsg})"
+        f"{plan.layout.shard_len} cols, layout "
+        f"{pspec.layout if pspec is not None else 'unpacked'}{kmsg})"
     )
     if args.mode == "oneshot":
         return _run_oneshot(args, spec, state, x, rng, device)

@@ -4,8 +4,9 @@ Every port engine runs the conformance scenarios of
 ``tests/test_conformance.py`` on the CPU beside the same reference engine
 (``repro.core.registry``): indices equal and int32, values equal and of x's
 dtype, both equal to the numpy oracle, and the built structures equal leaf
-for leaf. The hybrid's dispatch traps are pinned here too. Tolerance:
-exact.
+for leaf (``tests/test_torch_paths_conformance.py`` runs the packed layouts
+and the two-pass query through the same scenarios). The hybrid's dispatch
+traps are pinned here too. Tolerance: exact.
 """
 
 import importlib.util
@@ -31,7 +32,16 @@ _conformance = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_conformance)
 SCENARIOS = _conformance.SCENARIOS
 
-ENGINES = ["sparse_table", "block128", "block256", "fused128", "fused128_dma", "hybrid"]
+ENGINES = [
+    "sparse_table",
+    "block128",
+    "block256",
+    "lane",
+    "fused128",
+    "fused128_dma",
+    "hybrid",
+    "packed_hybrid",
+]
 
 
 def test_port_registry_has_the_served_engines():

@@ -14,10 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import block_rmq, ref
+from repro_torch.core import block_rmq, lane_rmq, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
-from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+from repro_torch.kernels.fused_query import (
+    fused_query,
+    fused_query_packed,
+    fused_query_packed_plain,
+    fused_query_plain,
+)
+from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
+from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
 from repro_torch.launch import serve
 
 pytestmark = pytest.mark.cuda
@@ -33,7 +40,17 @@ def cuda():
 def _values(rng, n, dtype):
     if dtype == "f32":
         return rng.random(n, dtype=np.float32)
+    if dtype == "f32z":  # ties between -0.0 and +0.0, and negatives
+        return rng.choice(np.array([-1.5, -0.0, 0.0, 0.0, 2.0], np.float32), n)
     return rng.integers(0, 3, n).astype(np.int32)  # tie-heavy
+
+
+def _same_bits(got, want):
+    """Output tuples equal bit for bit (so -0.0 and +0.0 differ)."""
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _queries(rng, n, b):
@@ -88,3 +105,57 @@ def test_serve_cli_on_card(cuda, capsys):
     )
     out = capsys.readouterr().out
     assert "verify[64] OK" in out and "verify: 8/8 requests bit-identical" in out
+
+
+@pytest.mark.parametrize("dtype", ["f32z", "i32"])
+def test_packed_and_partial_kernels_match_plain_on_card(cuda, dtype):
+    """fused_query_packed (packed32 both fetches, quantized), rmq_partials
+    and lane_partials against their plain versions, tiles 1/4/8, bit for bit
+    (signed zeros included)."""
+    rng = np.random.default_rng(6)
+    n = 300 * 128 + 11
+    x = _values(rng, n, dtype)
+    l, r = _queries(rng, n, 1001)
+    lt, rt = torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda)
+    gold = ref.rmq_ref(x, l, r)
+    layouts = ["quantized"] + (["packed32"] if dtype == "i32" else [])
+    for layout in layouts:
+        s, spec = ops.build_packed(x, 128, layout=layout, device=cuda)
+        want = fused_query_packed_plain(s.blocks, s.stw, lt, rt, spec=spec, bmin_val=s.bmin_val)
+        np.testing.assert_array_equal(want[0].cpu().numpy(), gold)
+        for fetch in ("resident", "dma"):
+            for tile in (1, 4, 8):
+                got = fused_query_packed(
+                    s.blocks, s.stw, lt, rt, spec=spec, bmin_val=s.bmin_val, fetch=fetch, tile=tile
+                )
+                _same_bits(got, want)
+    fs = ops.build(x, 128, device=cuda)
+    bl, br = lt // 128, rt // 128
+    ls, re = lt - bl * 128, rt - br * 128
+    le = torch.where(bl == br, re, 127)
+    want = rmq_partials_plain(fs.x_blocks, bl, br, ls, le, re)
+    for tile in (1, 4, 8):
+        _same_bits(rmq_partials(fs.x_blocks, bl, br, ls, le, re, tile=tile), want)
+    two_pass = ops.query(fs, lt, rt, fused=False)
+    _same_bits(two_pass, ops.query(fs, lt, rt))
+    s = lane_rmq.build(x, device=cuda)
+    planes = (s.xs, s.suff_val, s.suff_idx, s.pref_val, s.pref_idx)
+    sl, sr = lt // 128, rt // 128
+    args = (sl, sr, lt - sl * 128, rt - sr * 128)
+    want = lane_partials_plain(*planes, *args)
+    for tile in (1, 4, 8):
+        _same_bits(lane_partials(*planes, *args, tile=tile), want)
+    idx, val = ops.lane_query(s, lt, rt)
+    np.testing.assert_array_equal(idx.cpu().numpy(), gold)
+    assert torch.equal(idx, lane_rmq.query(s, lt, rt)[0])
+
+
+def test_packed_serve_cli_on_card(cuda, capsys):
+    before = fused_query_packed.launches_by_body["quantized"]
+    serve.main(
+        ["--engine", "packed_hybrid", "--packed", "quantized", "--n", str(1 << 16),
+         "--batch", "512", "--batches", "2"]
+    )
+    out = capsys.readouterr().out
+    assert "layout quantized" in out and "verify[64] OK" in out
+    assert fused_query_packed.launches_by_body["quantized"] > before

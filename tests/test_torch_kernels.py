@@ -22,19 +22,34 @@ from repro.core import sparse_table as jax_sparse_table
 from repro.kernels import ops as jax_ops
 from repro.kernels.block_min import block_min as jax_block_min
 from repro.kernels.fused_query import fused_query as jax_fused_query
+from repro.kernels.fused_query import fused_query_packed as jax_fused_query_packed
 from repro.kernels.fused_query import interior_tables as jax_interior_tables
+from repro.kernels.ref import rmq_partials_ref as jax_rmq_partials_ref
+from repro.kernels.rmq_query import rmq_partials as jax_rmq_partials
 from repro_torch.core import block_rmq, sparse_table
 from repro_torch.kernels import _build, ops, tuning
 from repro_torch.kernels.block_min import block_min
-from repro_torch.kernels.fused_query import fused_query
-from repro_torch.kernels.ref import block_min_ref
+from repro_torch.kernels.fused_query import fused_query, fused_query_packed, fused_query_packed_plain
+from repro_torch.kernels.ref import block_min_ref, rmq_partials_ref
+from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
 from torch_parity_util import assert_same_answer, assert_same_structure, to_np
 
 
 def _values(rng, n, dtype):
     if dtype == "f32":
         return rng.random(n, dtype=np.float32)
+    if dtype == "f32z":  # ties between -0.0 and +0.0, and negatives
+        return rng.choice(np.array([-1.5, -0.0, 0.0, 0.0, 2.0], np.float32), n)
     return rng.integers(0, 3, n).astype(np.int32)  # tie-heavy
+
+
+def _assert_bits(want, got):
+    """Output tuples equal with dtypes pinned, values bit for bit (so -0.0
+    and +0.0 differ)."""
+    for a, b in zip(want, got):
+        a, b = np.asarray(a), to_np(b)
+        assert a.dtype == b.dtype, (a.dtype, b.dtype)
+        np.testing.assert_array_equal(b.view(np.int32), a.view(np.int32))
 
 
 def _queries(rng, n, b):
@@ -204,8 +219,125 @@ def test_ops_build_and_query_match_reference(dtype):
         want = jax_ops.query(js, jnp.asarray(l), jnp.asarray(r), fetch=fetch, interpret=True)
         got = ops.query(ps, l, r, fetch=fetch)
         assert_same_answer(want, got, x=x, gold=ref.rmq_ref(x, l, r))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.query(ps, l, r, fused=False)
+    # The two-pass path: the rmq_partials kernel (its plain version here),
+    # then the interior and merge in PyTorch.
+    want = jax_ops.query(js, jnp.asarray(l), jnp.asarray(r), fused=False, interpret=True)
+    got = ops.query(ps, l, r, fused=False)
+    assert_same_answer(want, got, x=x, gold=ref.rmq_ref(x, l, r))
+    _assert_bits(want, got)
+
+
+# --- signed zeros: the reference kernels' ``jnp.min`` --------------------------
+
+
+def test_signed_zero_minimum_matches_pallas():
+    """A row whose minimum is a zero of both signs: the reference kernels
+    take ``vmin = jnp.min(row)``, which is -0.0, and the leftmost lane equal
+    to it; ``block_min`` and ``fused_query`` give the same bits (ROADMAP.md,
+    faults found in the port)."""
+    bs, nb = 128, 12
+    rng = np.random.default_rng(9)
+    x = _values(rng, nb * bs - 5, "f32z")
+    x[:bs] = 1.0
+    x[:2] = [0.0, -0.0]  # the smallest case: block 0 = [+0.0, -0.0, 1.0, ...]
+    xb = block_rmq.pad_blocks(torch.from_numpy(x), bs)
+    want = jax_block_min(jnp.asarray(to_np(xb)), interpret=True)
+    got = block_min(xb)
+    _assert_bits(want, got)
+    assert to_np(got[0])[0].view(np.int32) == np.float32(-0.0).view(np.int32)
+    assert int(got[1][0]) == 0  # the leftmost zero, though it is +0.0
+    js = jax_ops.build(jnp.asarray(x), bs, interpret=True)
+    ps = ops.build(x, bs, device="cpu")
+    _assert_bits((js.bmin_val, js.bmin_gidx), (ps.bmin_val, ps.bmin_gidx))
+    l, r = _queries(rng, x.size, 37)
+    for fetch in ("resident", "dma"):
+        want = jax_ops.query(js, jnp.asarray(l), jnp.asarray(r), fetch=fetch, interpret=True)
+        _assert_bits(want, ops.query(ps, l, r, fetch=fetch))
+
+
+# --- rmq_partials ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32z", "i32"])
+def test_rmq_partials_matches_pallas(dtype):
+    """The wrapper's plain version against the Pallas kernel in interpret
+    mode (bits, -0.0 included), and the port's ``rmq_partials_ref`` against
+    the reference's (argmin-based: the leftmost element's bits)."""
+    rng = np.random.default_rng(12)
+    bs, nb = 128, 20
+    n = bs * nb - 37
+    x = _values(rng, n, dtype)
+    l, r = _queries(rng, n, 37)
+    xb = block_rmq.pad_blocks(torch.from_numpy(x), bs)
+    bl, br = l // bs, r // bs
+    ls, rl = l - bl * bs, r - br * bs
+    le = np.where(bl == br, rl, bs - 1)
+    args = [a.astype(np.int32) for a in (bl, br, ls, le, rl)]
+    jargs = [jnp.asarray(a) for a in args]
+    jxb = jnp.asarray(to_np(xb))
+    want = jax_rmq_partials(jxb, *jargs, tile=8, interpret=True)
+    got = rmq_partials(xb, *args, tile=8)
+    assert got[1].dtype == torch.int32
+    _assert_bits(want, got)
+    _assert_bits(got, rmq_partials_plain(xb, *(torch.from_numpy(a) for a in args)))
+    _assert_bits(
+        jax_rmq_partials_ref(jxb, *jargs), rmq_partials_ref(xb, *(torch.from_numpy(a) for a in args))
+    )
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: no quiet fallback
+        rmq_partials(xb.to("meta"), *args)
+
+
+# --- fused_query_packed ----------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "layout,fetch,dtype",
+    [
+        ("packed32", "resident", "i32"),
+        ("packed32", "dma", "i32"),
+        ("quantized", "resident", "f32z"),
+        ("quantized", "resident", "i32"),
+    ],
+)
+def test_fused_query_packed_matches_pallas(layout, fetch, dtype):
+    """The packed megakernel's plain version against the Pallas kernel in
+    interpret mode, same structure (leaf for leaf) and same bits."""
+    rng = np.random.default_rng(14)
+    bs, nb = 128, 20
+    n = bs * nb - 37
+    x = _values(rng, n, dtype)
+    l, r = _queries(rng, n, 37)
+    js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout=layout)
+    ps, spec = ops.build_packed(x, bs, layout=layout, device="cpu")
+    assert spec == jspec
+    assert_same_structure(js, ps)
+    want = jax_fused_query_packed(
+        js.blocks, js.stw, jnp.asarray(l), jnp.asarray(r), spec=jspec, bmin_val=js.bmin_val,
+        tile=8, fetch=fetch, interpret=True,
+    )
+    got = fused_query_packed(ps.blocks, ps.stw, l, r, spec=spec, bmin_val=ps.bmin_val, fetch=fetch)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.from_numpy(x).dtype
+    _assert_bits(want, got)
+    np.testing.assert_array_equal(to_np(got[0]), ref.rmq_ref(x, l, r))
+    lt, rt = torch.from_numpy(l), torch.from_numpy(r)
+    _assert_bits(got, fused_query_packed_plain(ps.blocks, ps.stw, lt, rt, spec=spec, bmin_val=ps.bmin_val))
+
+
+def test_fused_query_packed_checks_its_inputs():
+    x = np.arange(300, dtype=np.int32)
+    s64, spec64 = block_rmq.build_packed(x, 128, layout="packed64", device="cpu")
+    with pytest.raises(ValueError, match="packed64"):
+        fused_query_packed(s64.blocks, s64.stw, [0], [5], spec=spec64)
+    sq, specq = ops.build_packed(x, 128, layout="quantized", device="cpu")
+    with pytest.raises(ValueError, match="bmin_val"):
+        fused_query_packed(sq.blocks, sq.stw, [0], [5], spec=specq)
+    s32, spec32 = ops.build_packed(x, 128, layout="packed32", device="cpu")
+    with pytest.raises(ValueError):
+        fused_query_packed(s32.blocks, s32.stw, [0], [5], spec=spec32, fetch="everything")
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: no quiet fallback
+        fused_query_packed(s32.blocks.to("meta"), s32.stw.to("meta"), [0], [5], spec=spec32)
+    idx, val = fused_query_packed(s32.blocks, s32.stw, [3], [290], spec=spec32)
+    assert idx.tolist() == [3] and val.dtype == torch.int32 and val.tolist() == [3]
 
 
 # --- no quiet fallback -----------------------------------------------------

@@ -235,7 +235,7 @@ def test_adaptive_deadline_moves_and_is_recorded():
     assert traj[:3] == (0.005, 0.0025, 0.00125) and traj[3] == pytest.approx(0.001875)
 
 
-@pytest.mark.parametrize("engine", ["hybrid", "fused128", "sparse_table"])
+@pytest.mark.parametrize("engine", ["hybrid", "fused128", "sparse_table", "lane", "packed_hybrid"])
 def test_serve_cli_oneshot_on_cpu(engine, capsys):
     serve.main(["--device", "cpu", "--engine", engine, "--n", "4096", "--batch", "256", "--batches", "2"])
     out = capsys.readouterr().out
@@ -255,6 +255,35 @@ def test_serve_cli_async_on_cpu(dist, capsys, tmp_path):
     out = capsys.readouterr().out
     assert "verify: 12/12 requests bit-identical to the oracle" in out
     assert "(12 complete request chains" in out and trace.exists()
+
+
+@pytest.mark.parametrize(
+    "packed,layout", [("auto", "packed64"), ("packed64", "packed64"), ("quantized", "quantized")]
+)
+def test_serve_cli_packed_on_cpu(packed, layout, capsys):
+    """--packed builds the packed structures; the build line names the layout
+    the data resolved to (float data: auto -> packed64, as in the reference)."""
+    serve.main(
+        ["--device", "cpu", "--engine", "packed_hybrid", "--packed", packed, "--n", "4096",
+         "--batch", "256", "--batches", "2"]
+    )
+    out = capsys.readouterr().out
+    assert f"layout {layout}" in out and "verify[64] OK" in out
+
+
+def test_serve_cli_packed_async_and_flag_validation(capsys):
+    serve.main(
+        [
+            "--device", "cpu", "--mode", "async", "--engine", "packed_hybrid", "--packed",
+            "quantized", "--n", "4096", "--clients", "2", "--requests", "4", "--req-batch", "16",
+            "--max-batch", "64",
+        ]
+    )
+    out = capsys.readouterr().out
+    assert "layout quantized" in out and "verify: 8/8 requests bit-identical to the oracle" in out
+    with pytest.raises(SystemExit):  # lane declares no 'packed' build kwarg
+        serve.main(["--device", "cpu", "--engine", "lane", "--packed", "--n", "1024"])
+    assert "--packed requires an engine with a 'packed' build kwarg" in capsys.readouterr().err
 
 
 def test_serve_cli_refuses_cuda_without_a_card():
