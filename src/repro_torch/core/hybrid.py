@@ -54,6 +54,7 @@ class HybridRMQ(NamedTuple):
     use_kernels: bool  # short path: fused CUDA kernel vs plain block_rmq
     short_fn: object  # (l, r) -> (idx, val), structure closed over
     long_fn: object  # (l, r) -> (idx, val)
+    spec: object = None  # the PackSpec both tiers were packed with; None unpacked
 
 
 def build(
@@ -124,6 +125,7 @@ def assemble(
         use_kernels=bool(use_kernels),
         short_fn=short_fn,
         long_fn=long_fn,
+        spec=spec,
     )
 
 

@@ -26,6 +26,7 @@ __all__ = [
     "build_for_serving",
     "get",
     "names",
+    "packed_spec",
     "plan_for_serving",
     "serveable_names",
 ]
@@ -59,6 +60,19 @@ def _simple_serve_plan(planner: str, **fixed):
 def _is_packed_state(s) -> bool:
     """Packed planner results are ``(structure, PackSpec)`` pairs."""
     return isinstance(s, tuple) and len(s) == 2 and isinstance(s[1], packing.PackSpec)
+
+
+def packed_spec(state):
+    """The ``PackSpec`` a served build resolved to, None when unpacked: the
+    hybrid's ``spec``, or the ``(structure, PackSpec)`` pair that is the
+    state (``block``) or its first part (``sparse_table``'s ``(table, x)``,
+    the fused engines' ``(structure, config)``)."""
+    if isinstance(state, hybrid.HybridRMQ):
+        return state.spec
+    for s in (state, state[0] if isinstance(state, tuple) else None):
+        if _is_packed_state(s):
+            return s[1]
+    return None
 
 
 def _sparse_table_query(state, l, r):

@@ -19,14 +19,15 @@
 //                 windows, which also overlapped the partial compute).
 //     Both read the same cells and give the same bits.
 //   quantized (``_kernel_quantized``): blocks are raw values (maxval-padded)
-//     and the partials are those of fused_query.cu; stw holds
+//     and the kernel is fused_query.cu's (``fused_query_kernel`` of
+//     common.cuh) with its own interior cells; stw holds
 //     (bucket << idx_bits | exact argmin index) words. The interior takes
 //     both cells' exact values from the resident plane bmin_val[idx / bs]
 //     (an interior cell's argmin is the minimum of its own fully covered
 //     block); on a bucket tie the exact values decide (lo cell on equal
-//     values), otherwise the word order does. The merge is fused_query's.
-//     Without an interior the cells are not read and iv = maxval, so the
-//     partial wins the merge exactly as in the reference (see fused_query.cu).
+//     values), otherwise the word order does. Without an interior the cells
+//     are not read and iv = maxval, so the partial wins the merge exactly as
+//     in the reference (see common.cuh).
 //
 // Bound: per query, the elements of its one or two partial rows, two interior
 // cells (packed32: 2 words; quantized: 2 words + 2 values), 8 bytes of bounds
@@ -35,8 +36,8 @@
 // bandwidth, bounds this simple version.
 //
 // Design: one warp per query, ``tile`` warps per thread block, queries past B
-// masked (no batch padding), block ids clamped to [0, nb) so a malformed
-// bound never reads outside the tensors. The word scans reduce with
+// masked (no batch padding), the per-query scalars from common.cuh's
+// ``decompose`` (block ids clamped). The word scans reduce with
 // __reduce_min_sync (the word order already breaks ties leftmost).
 
 #include "common.cuh"
@@ -62,27 +63,6 @@ __device__ __forceinline__ float unkey<float>(int32_t key) {
 template <>
 __device__ __forceinline__ int32_t unkey<int32_t>(int32_t key) {
   return key;
-}
-
-struct Decomp {
-  int bl, br, ls, le, re, ilo, bpos, k;
-  bool hasint;
-};
-
-// The scalar decomposition of fused_query.py:519-531, per warp.
-__device__ __forceinline__ Decomp decompose(int l, int r, int nb, int bs) {
-  Decomp d;
-  d.bl = min(max(l / bs, 0), nb - 1);
-  d.br = min(max(r / bs, 0), nb - 1);
-  d.ls = l - d.bl * bs;
-  d.re = r - d.br * bs;
-  d.le = (d.bl == d.br) ? d.re : bs - 1;
-  d.hasint = (d.br - d.bl) >= 2;
-  d.ilo = min(max(d.bl + 1, 0), nb - 1);
-  const int ihi = max(min(max(d.br - 1, 0), nb - 1), d.ilo);
-  d.k = 31 - __clz(ihi - d.ilo + 1);
-  d.bpos = ihi - (1 << d.k) + 1;
-  return d;
 }
 
 template <typename T, bool kDma>
@@ -120,40 +100,19 @@ __global__ void fused_query_packed32_kernel(const int32_t* __restrict__ blocks,
   out_val[q] = unkey<T>((int32_t)((uint32_t)(w >> idx_bits) + (uint32_t)kmin));
 }
 
+// The quantized interior: (bucket << idx_bits | exact argmin) words at both
+// cells; an interior cell's argmin is the minimum of its own fully covered
+// block, so bmin_val[idx / bs] is its exact value. On a bucket tie the exact
+// values decide (lo cell on equal values), otherwise the word order does.
 template <typename T>
-__global__ void fused_query_quantized_kernel(const T* __restrict__ blocks,
-                                             const int32_t* __restrict__ stw,
-                                             const T* __restrict__ bmin_val,
-                                             const int32_t* __restrict__ L,
-                                             const int32_t* __restrict__ R,
-                                             int32_t* __restrict__ out_idx,
-                                             T* __restrict__ out_val, int B, int nb, int bs,
-                                             int idx_bits) {
-  const int lane = threadIdx.x & 31;
-  const long long q = warp_query();
-  if (q >= B) return;
-  const T big = MaxVal<T>::get();
-  const Decomp d = decompose(L[q], R[q], nb, bs);
-
-  T lv;
-  int li;
-  row_min(blocks + (long long)d.bl * bs, d.ls, d.le, bs, lane, lv, li);
-  T rv = big;
-  int ri = bs;
-  if (d.br > d.bl) row_min(blocks + (long long)d.br * bs, 0, d.re, bs, lane, rv, ri);
-
-  if (lane != 0) return;
-  const int lg = d.bl * bs + li;
-  const int rg = d.br * bs + ri;
-  const bool take_l = lv <= rv;
-  const T pv = take_l ? lv : rv;
-  const int pi = take_l ? lg : rg;
-
-  T iv = big;
-  int ii = 0;
-  if (d.hasint) {
-    const int32_t wa = stw[(long long)d.k * nb + d.ilo];
-    const int32_t wb = stw[(long long)d.k * nb + d.bpos];
+struct QuantizedCells {
+  const int32_t* __restrict__ stw;
+  const T* __restrict__ bmin_val;
+  int idx_bits;
+  __device__ __forceinline__ void operator()(long long c_lo, long long c_hi, int bs, T& v,
+                                             int& i) const {
+    const int32_t wa = stw[c_lo];
+    const int32_t wb = stw[c_hi];
     const int32_t mask = (1 << idx_bits) - 1;
     const int ai = wa & mask;
     const int bi = wb & mask;
@@ -161,15 +120,10 @@ __global__ void fused_query_quantized_kernel(const T* __restrict__ blocks,
     const T avb = bmin_val[bi / bs];
     const bool collide = (wa >> idx_bits) == (wb >> idx_bits);
     const bool take_a = collide ? (ava <= avb) : (wa <= wb);
-    iv = take_a ? ava : avb;
-    ii = take_a ? ai : bi;
+    v = take_a ? ava : avb;
+    i = take_a ? ai : bi;
   }
-
-  const int int_start = (d.bl + 1) * bs;
-  const bool prefer_partial = (pv < iv) || (pv == iv && pi < int_start);
-  out_val[q] = prefer_partial ? pv : iv;
-  out_idx[q] = prefer_partial ? pi : ii;
-}
+};
 
 template <typename T>
 static int launch_packed32(const void* blocks, const void* stw, const void* l, const void* r,
@@ -194,12 +148,8 @@ template <typename T>
 static int launch_quantized(const void* blocks, const void* stw, const void* bmin_val,
                             const void* l, const void* r, void* out_idx, void* out_val, int B,
                             int nb, int bs, int idx_bits, int tile, void* stream) {
-  const dim3 block(32 * tile);
-  const dim3 grid((B + tile - 1) / tile);
-  fused_query_quantized_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)blocks, (const int32_t*)stw, (const T*)bmin_val, (const int32_t*)l,
-      (const int32_t*)r, (int32_t*)out_idx, (T*)out_val, B, nb, bs, idx_bits);
-  return (int)cudaGetLastError();
+  const QuantizedCells<T> cells{(const int32_t*)stw, (const T*)bmin_val, idx_bits};
+  return launch_fused_query<T>(blocks, cells, l, r, out_idx, out_val, B, nb, bs, tile, stream);
 }
 
 }  // namespace repro

@@ -14,9 +14,10 @@
 // bs = 128, float32, about 4.3 MB, 1.3 us at 3.35 TB/s; the row loads are
 // scattered, so latency bounds this simple version.
 //
-// Design: one warp per query, ``tile`` warps per thread block; the row scan
-// and the (value, position) shuffle reduction are fused_query.cu's
-// (common.cuh ``row_min``). Queries past B are masked; block ids are clamped
+// Design: one warp per query, ``tile`` warps per thread block; the row scans,
+// the (value, position) shuffle reduction and the left-first merge are
+// fused_query.cu's (common.cuh ``partials``). Queries past B are masked;
+// block ids are clamped
 // to [0, nb) so a malformed bound never reads outside x_blocks.
 
 #include "common.cuh"
@@ -36,17 +37,12 @@ __global__ void rmq_partials_kernel(const T* __restrict__ xb, const int32_t* __r
   const int bl = min(max(BL[q], 0), nb - 1);
   const int br = min(max(BR[q], 0), nb - 1);
 
-  T lv;
-  int li;
-  row_min(xb + (long long)bl * bs, LS[q], LE[q], bs, lane, lv, li);
-  T rv = MaxVal<T>::get();
-  int ri = bs;
-  if (br > bl) row_min(xb + (long long)br * bs, 0, RE[q], bs, lane, rv, ri);
-
+  T v;
+  int i;
+  partials(xb, bl, br, LS[q], LE[q], RE[q], bs, lane, v, i);
   if (lane != 0) return;
-  const bool take_l = lv <= rv;  // the left candidate has the smaller indices
-  out_val[q] = take_l ? lv : rv;
-  out_idx[q] = take_l ? bl * bs + li : br * bs + ri;
+  out_val[q] = v;
+  out_idx[q] = i;
 }
 
 template <typename T>

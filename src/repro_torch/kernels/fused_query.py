@@ -31,7 +31,7 @@ import threading
 import torch
 
 from repro_torch._device import as_index
-from repro_torch.core import packing
+from repro_torch.core import block_rmq, packing
 from repro_torch.core.block_rmq import maxval, split
 from repro_torch.core.sparse_table import exact_log2
 
@@ -230,22 +230,16 @@ fused_query.launches_by_fetch = {"resident": 0, "dma": 0}
 def fused_query_packed_plain(blocks, stw, l, r, *, spec, bmin_val=None):
     """The reference kernels' arithmetic (``_kernel_packed`` and
     ``_kernel_quantized``, fused_query.py:351-477) in PyTorch, the whole
-    batch at once. Both packed32 fetches read the same two cells."""
+    batch at once. packed32 is the min word of ``block_rmq.query_words``
+    (both fetches read the same two cells), unpacked."""
+    if spec.layout == "packed32":
+        w = block_rmq.query_words(spec, blocks, stw, l, r)
+        return packing.unpack_idx(spec, w), packing.unpack_val(spec, w)
+
     nb, bs = blocks.shape
     bl, br, ls, le, re, hasint, k, ilo, bpos = decompose(l, r, nb, bs)
     wa = stw[k, ilo]
     wb = stw[k, bpos]
-    if spec.layout == "packed32":
-        pad = packing.pad_word(spec)
-        lanes = torch.arange(bs, dtype=torch.int32, device=blocks.device)[None, :]
-        inside = (lanes >= ls[:, None]) & (lanes <= le[:, None])
-        lw = torch.where(inside, blocks[bl], pad).min(dim=1).values
-        rw = torch.where(lanes <= re[:, None], blocks[br], pad).min(dim=1).values
-        rw = torch.where(br > bl, rw, pad)
-        iw = torch.where(hasint, torch.minimum(wa, wb), pad)
-        w = torch.minimum(torch.minimum(lw, rw), iw)
-        return packing.unpack_idx(spec, w), packing.unpack_val(spec, w)
-
     pv, pi = rmq_partials_plain(blocks, bl, br, ls, le, re)
     ai = packing.unpack_idx(spec, wa)
     bi = packing.unpack_idx(spec, wb)

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch._device import resolve, to_numpy
 from repro_torch.core import build as build_mod
-from repro_torch.core import packing, ref, registry
+from repro_torch.core import ref, registry
 from repro_torch.obs import Tracer, set_tracer, verify_request_chains
 from repro_torch.serve import RMQServer, ServeConfig
 from repro_torch.serve.workload import make_queries, run_poisson_clients
@@ -324,21 +324,6 @@ def main(argv=None) -> None:
         raise SystemExit(1)
 
 
-def _find_spec(obj):
-    """The ``PackSpec`` a packed build resolved to (None when unpacked): in
-    the build state (hybrid) or in a ``(structure, spec)`` result."""
-    if isinstance(obj, packing.PackSpec):
-        return obj
-    if isinstance(obj, dict):
-        obj = tuple(obj.values())
-    if isinstance(obj, (tuple, list)):
-        for v in obj:
-            found = _find_spec(v)
-            if found is not None:
-                return found
-    return None
-
-
 def _run_modes(args, spec, kw, device) -> bool:
     rng = np.random.default_rng(0)
     x = rng.random(args.n, dtype=np.float32)
@@ -348,10 +333,9 @@ def _run_modes(args, spec, kw, device) -> bool:
     # plan's regimes instead of guessing.
     plan = registry.plan_for_serving(args.engine, args.n, device, **kw)
     t0 = time.perf_counter()
-    stages = {}
-    state = build_mod.execute(plan, x, observer=lambda name, st: stages.update(st))
+    state = build_mod.execute(plan, x)
     _sync(device)
-    pspec = _find_spec(stages)
+    pspec = registry.packed_spec(state)
     kcfg = plan.meta.get("kernel_config")
     kmsg = (
         f", kernel tile={kcfg.tile} fetch={kcfg.fetch} bs={kcfg.block_size}"

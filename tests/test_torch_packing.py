@@ -266,3 +266,26 @@ def test_ops_build_packed_matches_reference(layout, kind):
     if pspec.layout == "quantized" and kind == "f32":
         want = np.asarray(js.bmin_val)
         np.testing.assert_array_equal(to_np(ps.bmin_val).view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("packed", [None, "auto", "packed64", "quantized"])
+@pytest.mark.parametrize("engine", ["sparse_table", "block128", "fused128", "hybrid", "packed_hybrid"])
+def test_packed_spec_reads_the_resolved_layout(engine, packed):
+    """``registry.packed_spec`` finds the PackSpec a served build resolved to
+    (None when unpacked): float data under ``auto`` resolves to packed64, as
+    in the reference; fused128 refuses an explicit packed64 at plan time."""
+    from repro_torch.core import registry
+
+    x = np.random.default_rng(3).random(1 << 10, dtype=np.float32)
+    kw = {} if packed is None else {"packed": packed}
+    if engine == "fused128" and packed == "packed64":
+        with pytest.raises(ValueError, match="packed64"):
+            registry.build_for_serving(engine, x, device="cpu", **kw)
+        return
+    state = registry.build_for_serving(engine, x, device="cpu", **kw)
+    spec = registry.packed_spec(state)
+    if packed is None and engine != "packed_hybrid":
+        assert spec is None
+    else:
+        want = packed if packed not in (None, "auto") else "packed64"
+        assert spec.layout == want and spec == packing.spec_for(torch.from_numpy(x), x.size, want)
