@@ -12,8 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. ``block_min`` kernel vs its plain PyTorch version at nb = 2^19 rows,
    bs in {128, 256}, float32 and tie-heavy int32: values and lanes equal;
 3. ``fused_query`` kernel vs plain, ``resident`` at n = 2^20 and ``dma`` at
-   n = 2^26 (and each fetch at the other size), B in {4096, 4099}: indices
-   and values equal, and the two fetches equal;
+   n = 2^26 (and each fetch at the other size, timed too), B in
+   {4096, 4099}: indices and values equal, and the two fetches equal;
 4. ``fused_query_packed`` vs plain: packed32 at n = 2^20 int32 (key span
    49) and on the Euler-tour depth array of a complete binary tree of
    height 24 (n = 2^26 - 3, depths 0..24: the +-1 RMQ that LCA queries
@@ -23,7 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 2^26 float32 and int32, ``ops.query(fused=False)`` equal to
    ``ops.query`` and ``ops.lane_query`` equal to ``core.lane_rmq.query``,
    both checked against the oracle on a sample. B in {4096, 4099}, bit for
-   bit;
+   bit. Then every kernel against its plain version on
+   ``kernels.edge_batch`` (ranges cut at 4j, 4j+3 and mid-piece, ties
+   across rows, lanes and pieces, zeros of both signs, maxval minima,
+   quantized bucket collisions) at bs in {128, 256}, B in {1, 4099};
 5. the served paths. Through ``repro_torch.launch.serve.main``: hybrid and
    fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 (where the
    resident fetch serves), hybrid async at n = 2^26 with small and medium
@@ -40,10 +43,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
-``torch.profiler`` reports. ``bound_ms`` is the larger of the bytes the call
-must move over 3.35 TB/s and its operations over the card's peak (67 TFLOP/s
-float32 outside the tensor cores; tiny here), from this run's inputs.
-Tolerance of every comparison: exact.
+``torch.profiler`` reports, warm (``ms``: the same batch launched again and
+again, so it sits in L2) and cold (``cold_ms``: a 128 MiB write between
+launches evicts L2, as fresh ranges over a large array find it).
+``bound_ms`` is the larger of the bytes the call must move over 3.35 TB/s
+and its operations over the card's peak (67 TFLOP/s float32 outside the
+tensor cores; tiny here), from this run's inputs. Tolerance of every
+comparison: exact.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
 N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: the largest "auto" resident size
 EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
@@ -90,19 +97,25 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def _kernel_ms(torch, fn, name: str, iters: int = 20, attempts: int = 5) -> float:
+def _kernel_ms(torch, fn, name: str, iters: int = 20, attempts: int = 5, flush=None) -> float:
     """Device time of one launch of the kernel whose name holds ``name``,
-    from ``torch.profiler`` (mean over ``iters`` launches). A session that
-    records no such kernel (it happens now and then) is run again; after
-    ``attempts`` empty sessions the run fails: a kernel's row never holds
-    another time than its device time."""
+    from ``torch.profiler`` (mean over ``iters`` launches). With ``flush``
+    (a tensor of ``FLUSH_BYTES`` on the card) every launch follows a write
+    of the whole tensor, which evicts L2: the kernel finds its inputs in
+    device memory, as a served batch of fresh ranges does. The write is a
+    kernel of its own and is not counted. A session that records no such
+    kernel (it happens now and then) is run again; after ``attempts`` empty
+    sessions the run fails: a kernel's row never holds another time than
+    its device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for i in range(iters):
+                if flush is not None:
+                    flush.fill_(i)
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages() if name in e.key]
@@ -111,6 +124,18 @@ def _kernel_ms(torch, fn, name: str, iters: int = 20, attempts: int = 5) -> floa
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         print(f"[profiler] no {name} kernel recorded in a session of {iters} calls; again")
     raise SystemExit(f"chip_smoke: FAILED: torch.profiler recorded no {name} kernel")
+
+
+def kernel_times(torch, fn, name: str, flush) -> dict:
+    """A kernel's device time warm (``ms``: the same batch launched again and
+    again, so from the second launch on its rows and cells sit in L2) and
+    cold (``cold_ms``: L2 flushed before every launch), and ``call_ms``, the
+    CUDA-event median of one wrapper call (host work included)."""
+    return dict(
+        ms=_kernel_ms(torch, fn, name),
+        cold_ms=_kernel_ms(torch, fn, name, flush=flush),
+        call_ms=_time_ms(torch, fn),
+    )
 
 
 def _require(cond: bool, what: str) -> None:
@@ -266,6 +291,7 @@ def main() -> int:
     from repro_torch.core import hybrid, lane_rmq, ref, registry
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.block_min import block_min, block_min_plain
+    from repro_torch.kernels.edge_batch import edge_batch
     from repro_torch.kernels.fused_query import (
         fused_query,
         fused_query_packed,
@@ -295,6 +321,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     kernels = {}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
     # --- phase 2: block_min -------------------------------------------------
     nb = 1 << 19
@@ -308,21 +335,20 @@ def main() -> int:
             pv, pi = block_min_plain(xb)
             torch.cuda.synchronize()
             _require(torch.equal(kv, pv) and torch.equal(ki, pi), f"block_min {kind} bs={bs} != plain")
-            call_ms = _time_ms(torch, lambda: block_min(xb))
-            ms = _kernel_ms(torch, lambda: block_min(xb), "block_min_kernel")
+            t = kernel_times(torch, lambda: block_min(xb), "block_min_kernel", flush)
             plain_ms = _time_ms(torch, lambda: block_min_plain(xb))
             lib_ms = _time_ms(torch, lambda: torch.min(xb, dim=1))
             bound_ms = (nb * bs * 4 + nb * 8) / HBM_BYTES_PER_S * 1e3
             err = _max_abs_err(torch, kv, pv)
             print(
                 f"[block_min] {kind} nb={nb} bs={bs}: equal to plain (max_abs_err {err}); "
-                f"kernel {ms} ms on the device, {call_ms:.4f} ms per wrapper call; "
-                f"plain {plain_ms:.4f} ms, torch.min {lib_ms:.4f} ms, bound {bound_ms:.4f} ms"
+                f"kernel {t['ms']} ms on the device ({t['cold_ms']} ms with L2 flushed), "
+                f"{t['call_ms']:.4f} ms per wrapper call; plain {plain_ms:.4f} ms, "
+                f"torch.min {lib_ms:.4f} ms, bound {bound_ms:.4f} ms"
             )
             if kind == "f32" and bs == 128:  # the served shape: n = 2^26 float32
                 kernels["block_min"] = dict(
-                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, library_ms=lib_ms, max_abs_err=err,
+                    **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=lib_ms, max_abs_err=err,
                 )
             del xb, kv, ki, pv, pi
 
@@ -351,11 +377,13 @@ def main() -> int:
                         f"fused_query {fetch} {kind} n={n} B={b} != plain",
                     )
                     out[fetch] = (ki, kv)
-                    if fetch != own or b != 4096:
+                    if b != 4096 or (kind != "f32" and fetch != own):
                         continue
+                    # Both fetches are timed at both sizes, so the two read
+                    # strategies (and RESIDENT_NB_CEILING) are compared at one
+                    # n; the row keeps the fetch the size selects.
                     call = lambda: fused_query(*args, **tables, fetch=fetch)
-                    call_ms = _time_ms(torch, call)
-                    ms = _kernel_ms(torch, call, "fused_query_kernel")
+                    t = kernel_times(torch, call, "fused_query_kernel", flush)
                     plain_ms = _time_ms(
                         torch, lambda: fused_query_plain(*args, **tables, fetch=fetch)
                     )
@@ -363,14 +391,14 @@ def main() -> int:
                     err = _max_abs_err(torch, kv, pv)
                     print(
                         f"[fused_query] {fetch} {kind} n={n} nb={nbk} B={b}: equal to plain "
-                        f"(max_abs_err {err}); kernel {ms} ms/batch on the device, "
-                        f"{call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms, "
-                        f"bound {bound_ms:.6f} ms"
+                        f"(max_abs_err {err}); kernel {t['ms']} ms/batch on the device, "
+                        f"{t['cold_ms']} ms with L2 flushed, {t['call_ms']:.4f} ms per wrapper "
+                        f"call; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
                     )
-                    if kind == "f32":
+                    if kind == "f32" and fetch == own:
                         kernels[f"fused_query[{fetch}]"] = dict(
-                            ms=ms, call_ms=call_ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
+                            **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None,
+                            max_abs_err=err,
                         )
                 _require(
                     torch.equal(out["resident"][0], out["dma"][0])
@@ -428,23 +456,25 @@ def main() -> int:
                 # Both packed32 fetches are timed at both sizes, so the two
                 # read strategies are compared at the same n; the row keeps
                 # the fetch the size selects.
-                ms = _kernel_ms(torch, call, kname[layout])
+                t = kernel_times(torch, call, kname[layout], flush)
                 if fetch != timed:
-                    print(f"[fused_query_packed] {layout} {fetch} {kind} n={n} B={b}: kernel {ms} ms/batch on the device")
+                    print(
+                        f"[fused_query_packed] {layout} {fetch} {kind} n={n} B={b}: kernel "
+                        f"{t['ms']} ms/batch on the device, {t['cold_ms']} ms with L2 flushed"
+                    )
                     continue
                 name = f"fused_query_packed[{layout},{fetch}]" if layout == "packed32" else "fused_query_packed[quantized]"
-                call_ms = _time_ms(torch, call)
                 plain_ms = _time_ms(torch, lambda: fused_query_packed_plain(*args, **kw))
                 bound_ms = _packed_bytes(l, r, 128, 4, layout) / HBM_BYTES_PER_S * 1e3
                 err = _max_abs_err(torch, kv, pv)
                 print(
                     f"[fused_query_packed] {layout} {fetch} {kind} n={n} B={b}: equal to plain "
-                    f"(max_abs_err {err}); kernel {ms} ms/batch on the device, {call_ms:.4f} ms "
-                    f"per wrapper call; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
+                    f"(max_abs_err {err}); kernel {t['ms']} ms/batch on the device, "
+                    f"{t['cold_ms']} ms with L2 flushed, {t['call_ms']:.4f} ms per wrapper "
+                    f"call; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
                 )
                 kernels[name] = dict(
-                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, library_ms=None, max_abs_err=err,
+                    **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
                 )
             if layout == "packed32":
                 _require(
@@ -503,20 +533,73 @@ def main() -> int:
                 ("lane_partials", lambda: lane_partials(*largs), lambda: lane_partials_plain(*largs),
                  "lane_partials_kernel", _lane_bytes(l, r, 4), _max_abs_err(torch, lkv, lpv)),
             ):
-                call_ms = _time_ms(torch, call)
-                ms = _kernel_ms(torch, call, pname)
+                t = kernel_times(torch, call, pname, flush)
                 plain_ms = _time_ms(torch, plain)
                 bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 print(
-                    f"[{name}] f32 n={N_MAIN} B={b}: equal to plain (max_abs_err {err}); kernel {ms} "
-                    f"ms/batch on the device, {call_ms:.4f} ms per wrapper call; plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms"
+                    f"[{name}] f32 n={N_MAIN} B={b}: equal to plain (max_abs_err {err}); kernel "
+                    f"{t['ms']} ms/batch on the device, {t['cold_ms']} ms with L2 flushed, "
+                    f"{t['call_ms']:.4f} ms per wrapper call; plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.6f} ms"
                 )
                 kernels[name] = dict(
-                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, library_ms=None, max_abs_err=err,
+                    **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
                 )
         del fs, ls_, planes, pargs, largs
+
+    # --- phase 4b: every kernel on edge_batch, bs = 128 and 256 -------------
+    for bs in (128, 256):
+        for dtype in ("float32", "int32"):
+            for b in (1, 4099):
+                x, l, r = edge_batch(bs, dtype, b)
+                lt = torch.from_numpy(l).to(dev)
+                rt = torch.from_numpy(r).to(dev)
+                what = f"edge_batch bs={bs} {dtype} B={b}"
+                fs = ops.build(x, bs, device=dev)
+                _require(
+                    all(same_bits(k, p) for k, p in zip(block_min(fs.x_blocks), block_min_plain(fs.x_blocks))),
+                    f"block_min != plain on {what}",
+                )
+                args = (fs.x_blocks, fs.bmin_val, fs.bmin_gidx, fs.st.idx, lt, rt)
+                tables = dict(st_val=fs.st_val, st_gidx=fs.st_gidx)
+                for fetch in ("resident", "dma"):
+                    want = fused_query_plain(*args, **tables, fetch=fetch)
+                    for tile in (1, 8):
+                        got = fused_query(*args, **tables, fetch=fetch, tile=tile)
+                        _require(
+                            all(same_bits(g, w) for g, w in zip(got, want)),
+                            f"fused_query {fetch} tile={tile} != plain on {what}",
+                        )
+                bl, br = lt // bs, rt // bs
+                ls, re = lt - bl * bs, rt - br * bs
+                pargs = (fs.x_blocks, bl, br, ls, torch.where(bl == br, re, bs - 1), re)
+                _require(
+                    all(same_bits(g, w) for g, w in zip(rmq_partials(*pargs), rmq_partials_plain(*pargs))),
+                    f"rmq_partials != plain on {what}",
+                )
+                layouts = {"quantized": edge_batch(bs, dtype, b, finite=True)[0]}
+                if dtype == "int32":  # packed32 needs a small key span: the padding blocks hold 8
+                    layouts["packed32"] = np.minimum(x, 8)
+                for layout, xq in layouts.items():
+                    q, spec = ops.build_packed(xq, bs, layout=layout, device=dev)
+                    kw = dict(spec=spec, bmin_val=q.bmin_val)
+                    want = fused_query_packed_plain(q.blocks, q.stw, lt, rt, **kw)
+                    for fetch in ("resident", "dma") if layout == "packed32" else ("resident",):
+                        got = fused_query_packed(q.blocks, q.stw, lt, rt, **kw, fetch=fetch)
+                        _require(
+                            all(same_bits(g, w) for g, w in zip(got, want)),
+                            f"fused_query_packed {layout} {fetch} != plain on {what}",
+                        )
+                ls_ = lane_rmq.build(x, device=dev)
+                sl, sr = lt // 128, rt // 128
+                largs = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx,
+                         sl, sr, lt - sl * 128, rt - sr * 128)
+                _require(
+                    all(same_bits(g, w) for g, w in zip(lane_partials(*largs), lane_partials_plain(*largs))),
+                    f"lane_partials != plain on {what}",
+                )
+                print(f"[edge_batch] bs={bs} {dtype} B={b}: every kernel == plain, bit for bit (tiles 1 and 8)")
+    del flush  # the served runs measure their own peak memory
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 5: the served paths ------------------------------------------
@@ -674,6 +757,7 @@ def main() -> int:
                 "launches": counts[name],
                 "max_abs_err": m["max_abs_err"],
                 "ms": m["ms"],
+                "cold_ms": m["cold_ms"],
                 "call_ms": m["call_ms"],
                 "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"],

@@ -12,62 +12,81 @@
 // x_blocks[br, 0..re] (only when br > bl), the interior (when br - bl >= 2)
 // the two doubling-table cells at (k, ilo) and (k, bpos), and the merges are
 // those of the reference (fused_query.py:157-169): left over right on ties
-// (lv <= rv); the cell at ilo over the cell at bpos on ties; the partial over
+// (lv <= rv); the interior value is ``jnp.minimum`` of the two cells (-0.0
+// below +0.0) and its index the lo cell's on ties; the partial wins over
 // the interior iff pv < iv, or pv == iv and its index lies left of the
 // interior's first block.
 //
-//   fetch resident: st_idx[k, .] gives block ids whose value and global index
-//                   come from bmin_val / bmin_gidx (two dependent loads);
-//   fetch dma:      the value-augmented tables st_val / st_gidx hold them at
-//                   the same two cells (one load).
+//   fetch dma:      the value-augmented tables st_val / st_gidx hold each
+//                   cell's value and global index: lanes 0 and 1 load them
+//                   together with the rows.
+//   fetch resident: st_idx[k, .] gives block ids, and their values and
+//                   global indices come from bmin_val / bmin_gidx: the hop,
+//                   issued while the rows arrive.
 //
 // Bound: per query, the elements of its one or two partial ranges, the
 // interior cells, 8 bytes of bounds and one (idx, val) written; at B = 4096,
 // bs = 128, float32, with both partial rows whole, about 4.8 MB, 1.4 us at
-// 3.35 TB/s. The loads are dependent and scattered (each query touches its
-// own rows and table cells), so latency, not bandwidth, is expected to bound
-// this simple version.
+// 3.35 TB/s. A batch cannot keep the card's memory busy: the chain of
+// dependent round trips per query bounds it.
 //
-// Design: one warp per query, ``tile`` queries (warps) per thread block
+// What held the first version back, and the design now: the shared body
 // (``fused_query_kernel`` of common.cuh, which the quantized packed body
-// shares). The lanes stride the row (coalesced reads; lanes outside the
-// range skip the load and carry maxval, exactly the reference's masked
-// lanes), then a shuffle reduction over (value, lane) keeps the lower lane
-// on equal values. This file holds the two interiors.
+// shares) used to walk the left row, then the right row, in 4-byte steps,
+// and only then read the cells from lane 0: 4 dependent round trips for dma,
+// 5 for resident. It now issues the cells and both rows in 16-byte pieces
+// at once, the hop right after: 2 round trips for dma, 3 for resident. This
+// file holds the two interiors.
 
 #include "common.cuh"
 
 namespace repro {
 
 // The lo cell covers [ilo, ilo + 2^k), which starts at or before the hi
-// cell's [bpos, ihi]: prefer lo on equal values.
+// cell's [bpos, ihi]: its index wins on equal values. The value is the
+// reference's ``jnp.minimum`` of the two (-0.0 below +0.0).
 template <typename T>
-__device__ __forceinline__ void pick_lo(T av, int ai, T bv, int bi, T& v, int& i) {
-  const bool take_lo = av <= bv;
-  v = take_lo ? av : bv;
-  i = take_lo ? ai : bi;
+__device__ __forceinline__ void pick_lo(T av, int ai, T& v, int& i) {
+  const T bv = __shfl_sync(kFullMask, av, 1);
+  const int bi = __shfl_sync(kFullMask, ai, 1);
+  v = signed_min(av, bv);
+  i = av <= bv ? ai : bi;
 }
+
+template <typename T>
+struct DmaCells {
+  const T* __restrict__ st_val;
+  const int32_t* __restrict__ st_gidx;
+  struct Cell {
+    T v;
+    int i;
+  };
+  __device__ __forceinline__ Cell load(long long cell) const {
+    return {st_val[cell], st_gidx[cell]};
+  }
+  __device__ __forceinline__ void resolve(Cell&, int) const {}
+  __device__ __forceinline__ void pick(const Cell& c, int, T& v, int& i) const {
+    pick_lo(c.v, c.i, v, i);
+  }
+};
 
 template <typename T>
 struct ResidentCells {
   const int32_t* __restrict__ st_idx;
   const T* __restrict__ bmin_val;
   const int32_t* __restrict__ bmin_gidx;
-  __device__ __forceinline__ void operator()(long long c_lo, long long c_hi, int, T& v,
-                                             int& i) const {
-    const int a = st_idx[c_lo];
-    const int b = st_idx[c_hi];
-    pick_lo(bmin_val[a], bmin_gidx[a], bmin_val[b], bmin_gidx[b], v, i);
+  struct Cell {
+    int block;
+    T v;
+    int i;
+  };
+  __device__ __forceinline__ Cell load(long long cell) const { return {st_idx[cell], T(), 0}; }
+  __device__ __forceinline__ void resolve(Cell& c, int) const {
+    c.v = bmin_val[c.block];
+    c.i = bmin_gidx[c.block];
   }
-};
-
-template <typename T>
-struct DmaCells {
-  const T* __restrict__ st_val;
-  const int32_t* __restrict__ st_gidx;
-  __device__ __forceinline__ void operator()(long long c_lo, long long c_hi, int, T& v,
-                                             int& i) const {
-    pick_lo(st_val[c_lo], st_gidx[c_lo], st_val[c_hi], st_gidx[c_hi], v, i);
+  __device__ __forceinline__ void pick(const Cell& c, int, T& v, int& i) const {
+    pick_lo(c.v, c.i, v, i);
   }
 };
 

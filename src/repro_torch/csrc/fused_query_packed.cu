@@ -19,26 +19,34 @@
 //                 windows, which also overlapped the partial compute).
 //     Both read the same cells and give the same bits.
 //   quantized (``_kernel_quantized``): blocks are raw values (maxval-padded)
-//     and the kernel is fused_query.cu's (``fused_query_kernel`` of
-//     common.cuh) with its own interior cells; stw holds
-//     (bucket << idx_bits | exact argmin index) words. The interior takes
-//     both cells' exact values from the resident plane bmin_val[idx / bs]
-//     (an interior cell's argmin is the minimum of its own fully covered
-//     block); on a bucket tie the exact values decide (lo cell on equal
-//     values), otherwise the word order does. Without an interior the cells
-//     are not read and iv = maxval, so the partial wins the merge exactly as
-//     in the reference (see common.cuh).
+//     and the kernel is ``fused_query_kernel`` of common.cuh (fused_query.cu's
+//     body) with its own interior cells; stw holds (bucket << idx_bits |
+//     exact argmin index) words. The interior takes both cells' exact values
+//     from the resident plane bmin_val[idx / bs] (an interior cell's argmin
+//     is the minimum of its own fully covered block); on a bucket tie the
+//     exact values decide (lo cell on equal values), otherwise the word order
+//     does. Without an interior the cells are not read and iv = maxval, so
+//     the partial wins the merge exactly as in the reference (see
+//     common.cuh).
 //
 // Bound: per query, the elements of its one or two partial rows, two interior
 // cells (packed32: 2 words; quantized: 2 words + 2 values), 8 bytes of bounds
 // and one (idx, val) written. At B = 4096 that is under 5 MB, about 1.4 us at
-// 3.35 TB/s; each warp's loads are dependent and scattered, so latency, not
-// bandwidth, bounds this simple version.
+// 3.35 TB/s; a batch cannot keep the card's memory busy, so the chain of
+// dependent round trips per query bounds both bodies.
 //
 // Design: one warp per query, ``tile`` warps per thread block, queries past B
 // masked (no batch padding), the per-query scalars from common.cuh's
-// ``decompose`` (block ids clamped). The word scans reduce with
-// __reduce_min_sync (the word order already breaks ties leftmost).
+// ``decompose`` (block ids clamped).
+//   quantized: what held the first version back was the shared body's chain
+//     (bounds; left row in 4-byte steps; right row; then lane 0's two stw
+//     words; then their two block minima: 5 dependent round trips). Lanes 0
+//     and 1 now load the two stw words together with both rows (16-byte
+//     pieces), and each issues its own bmin_val hop before the rows reduce:
+//     3 round trips (common.cuh).
+//   packed32: the word scans still step 4 bytes at a time, one row after the
+//     other, and reduce with __reduce_min_sync (the word order already breaks
+//     ties leftmost); giving them the pieces of common.cuh is later work.
 
 #include "common.cuh"
 
@@ -102,26 +110,29 @@ __global__ void fused_query_packed32_kernel(const int32_t* __restrict__ blocks,
 
 // The quantized interior: (bucket << idx_bits | exact argmin) words at both
 // cells; an interior cell's argmin is the minimum of its own fully covered
-// block, so bmin_val[idx / bs] is its exact value. On a bucket tie the exact
-// values decide (lo cell on equal values), otherwise the word order does.
+// block, so bmin_val[idx / bs] is its exact value (the hop). On a bucket tie
+// the exact values decide (lo cell on equal values), otherwise the word order
+// does.
 template <typename T>
 struct QuantizedCells {
   const int32_t* __restrict__ stw;
   const T* __restrict__ bmin_val;
   int idx_bits;
-  __device__ __forceinline__ void operator()(long long c_lo, long long c_hi, int bs, T& v,
-                                             int& i) const {
-    const int32_t wa = stw[c_lo];
-    const int32_t wb = stw[c_hi];
-    const int32_t mask = (1 << idx_bits) - 1;
-    const int ai = wa & mask;
-    const int bi = wb & mask;
-    const T ava = bmin_val[ai / bs];
-    const T avb = bmin_val[bi / bs];
-    const bool collide = (wa >> idx_bits) == (wb >> idx_bits);
-    const bool take_a = collide ? (ava <= avb) : (wa <= wb);
-    v = take_a ? ava : avb;
-    i = take_a ? ai : bi;
+  struct Cell {
+    int32_t w;
+    T v;
+  };
+  __device__ __forceinline__ Cell load(long long cell) const { return {stw[cell], T()}; }
+  __device__ __forceinline__ void resolve(Cell& c, int bs) const {
+    c.v = bmin_val[(c.w & ((1 << idx_bits) - 1)) / bs];
+  }
+  __device__ __forceinline__ void pick(const Cell& c, int, T& v, int& i) const {
+    const int32_t wb = __shfl_sync(kFullMask, c.w, 1);
+    const T vb = __shfl_sync(kFullMask, c.v, 1);
+    const bool collide = (c.w >> idx_bits) == (wb >> idx_bits);
+    const bool take_a = collide ? (c.v <= vb) : (c.w <= wb);
+    v = take_a ? c.v : vb;
+    i = (take_a ? c.w : wb) & ((1 << idx_bits) - 1);
   }
 };
 

@@ -10,8 +10,9 @@ compiler's version, so an edit or a new toolkit rebuilds and an unchanged
 tree reuses the library. The build happens at first use, never at import.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` raises on a non-zero code. There is no fallback: without ``nvcc``
-or on a failed build, ``library()`` raises.
+``launch`` calls one on the current stream and raises on a non-zero code.
+There is no fallback: without ``nvcc`` or on a failed build, ``library()``
+raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_dir", "check", "library", "nvcc_path"]
+import torch
+
+__all__ = ["SOURCES", "build_dir", "check_pieces", "launch", "library", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (
@@ -60,6 +63,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_entry_points = {}  # name -> ctypes function of the loaded library
 # What the last build printed (``-Xptxas -v``: registers, spills per kernel)
 # and how long it took; None when the library came from an earlier build.
 build_log = None
@@ -149,8 +153,30 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check_pieces(t, name: str, what: str) -> None:
+    """Raise unless the rows of ``t`` can be read in 16-byte pieces: a
+    multiple of 128 values each, from a 16-byte aligned base."""
+    if t.shape[-1] % 128 or t.data_ptr() % 16:
+        raise ValueError(
+            f"{what}: {name} must have rows of a multiple of 128 values from a 16-byte "
+            f"aligned base (the kernel reads 16-byte pieces), got {tuple(t.shape)} at "
+            f"{t.data_ptr():#x}"
+        )
+
+
+def launch(name: str, what: str, dev, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream of
+    ``dev``, and raise if it returned a CUDA error. The function is resolved
+    once per process; the device context is entered only when ``dev`` is not
+    the current device."""
+    fn = _entry_points.get(name)
+    if fn is None:
+        fn = _entry_points[name] = getattr(library(), name)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = library().repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

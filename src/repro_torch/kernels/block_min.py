@@ -19,7 +19,7 @@ from . import _build
 
 __all__ = ["block_min", "block_min_plain"]
 
-_DTYPES = {torch.float32: "f32", torch.int32: "i32"}
+_ENTRY = {torch.float32: "repro_block_min_f32", torch.int32: "repro_block_min_i32"}
 _count_lock = threading.Lock()
 
 
@@ -39,7 +39,7 @@ def block_min(x_blocks: torch.Tensor, *, tile_rows: int = 8):
         raise ValueError(
             f"x_blocks must be (nb, bs) with bs % 128 == 0, got {tuple(x_blocks.shape)}"
         )
-    if x_blocks.dtype not in _DTYPES:
+    if x_blocks.dtype not in _ENTRY:
         raise TypeError(f"block_min takes float32 or int32, got {x_blocks.dtype}")
     if x_blocks.device.type == "cpu":
         return block_min_plain(x_blocks)
@@ -54,12 +54,10 @@ def block_min(x_blocks: torch.Tensor, *, tile_rows: int = 8):
     idx = torch.empty(nb, dtype=torch.int32, device=x_blocks.device)
     if nb == 0:
         return val, idx
-    lib = _build.library()
-    with torch.cuda.device(x_blocks.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"repro_block_min_{_DTYPES[x_blocks.dtype]}")
-        code = fn(x_blocks.data_ptr(), val.data_ptr(), idx.data_ptr(), nb, bs, tile_rows, stream)
-        _build.check(code, "block_min")
+    _build.launch(
+        _ENTRY[x_blocks.dtype], "block_min", x_blocks.device,
+        x_blocks.data_ptr(), val.data_ptr(), idx.data_ptr(), nb, bs, tile_rows,
+    )
     with _count_lock:
         block_min.launches += 1
     return val, idx

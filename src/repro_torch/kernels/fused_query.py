@@ -32,7 +32,7 @@ import torch
 
 from repro_torch._device import as_index
 from repro_torch.core import block_rmq, packing
-from repro_torch.core.block_rmq import maxval, split
+from repro_torch.core.block_rmq import maxval, signed_min, split
 from repro_torch.core.sparse_table import exact_log2
 
 from . import _build
@@ -50,6 +50,13 @@ __all__ = [
 
 _logger = logging.getLogger(__name__)
 _DTYPES = {torch.float32: "f32", torch.int32: "i32"}
+# The C entry points, by value dtype (and packed layout).
+_ENTRY = {dt: f"repro_fused_query_{k}" for dt, k in _DTYPES.items()}
+_PACKED_ENTRY = {
+    (layout, dt): f"repro_fused_query_{layout}_{k}"
+    for layout in ("packed32", "quantized")
+    for dt, k in _DTYPES.items()
+}
 _count_lock = threading.Lock()
 _warned_materialize = False
 
@@ -103,9 +110,12 @@ def fused_query_plain(
     else:
         av, bv = st_val[k, ilo], st_val[k, bpos]
         ai, bi = st_gidx[k, ilo], st_gidx[k, bpos]
-    take_lo = av <= bv
-    iv = torch.where(hasint, torch.where(take_lo, av, bv), maxval(x_blocks.dtype))
-    ii = torch.where(take_lo, ai, bi)
+    # The value is the reference's ``jnp.minimum(av, bv)``: -0.0 when either
+    # cell holds it and the other a zero (ROADMAP.md §3); the index is the lo
+    # cell's on ties.
+    iv = signed_min(torch.stack([av, bv], dim=1))
+    iv = torch.where(hasint, iv, maxval(x_blocks.dtype))
+    ii = torch.where(av <= bv, ai, bi)
     return merge_interior(pv, pi, iv, ii, (bl + 1) * bs)
 
 
@@ -175,6 +185,7 @@ def fused_query(
     if not 1 <= tile <= 32:
         raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
     _check_leaf("x_blocks", x_blocks, x_blocks.dtype, dev, 2)
+    _build.check_pieces(x_blocks, "x_blocks", "fused_query")
     if fetch == "resident":
         _check_leaf("bmin_val", bmin_val, x_blocks.dtype, dev, 1)
         _check_leaf("bmin_gidx", bmin_gidx, torch.int32, dev, 1)
@@ -195,15 +206,11 @@ def fused_query(
     val = torch.empty(b, dtype=x_blocks.dtype, device=dev)
     if b == 0:
         return idx, val
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"repro_fused_query_{_DTYPES[x_blocks.dtype]}")
-        code = fn(
-            x_blocks.data_ptr(), *ptrs, l.data_ptr(), r.data_ptr(), idx.data_ptr(), val.data_ptr(),
-            b, nb, bs, int(fetch == "dma"), tile, stream,
-        )
-        _build.check(code, f"fused_query[{fetch}]")
+    _build.launch(
+        _ENTRY[x_blocks.dtype], f"fused_query[{fetch}]", dev,
+        x_blocks.data_ptr(), *ptrs, l.data_ptr(), r.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        b, nb, bs, int(fetch == "dma"), tile,
+    )
     with _count_lock:
         fused_query.launches += 1
         fused_query.launches_by_fetch[fetch] += 1
@@ -304,6 +311,7 @@ def fused_query_packed(
         _check_leaf("blocks", blocks, torch.int32, dev, 2, what)
     else:
         _check_leaf("blocks", blocks, val_dtype, dev, 2, what)
+        _build.check_pieces(blocks, "blocks", what)
         _check_leaf("bmin_val", bmin_val, val_dtype, dev, 1, what)
         if bmin_val.shape[0] != nb:
             raise ValueError(f"{what}: bmin_val must have nb = {nb} entries")
@@ -314,24 +322,20 @@ def fused_query_packed(
     val = torch.empty(b, dtype=val_dtype, device=dev)
     if b == 0:
         return idx, val
-    lib = _build.library()
-    kind = _DTYPES[val_dtype]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if spec.layout == "packed32":
-            body = f"packed32[{fetch}]"
-            code = getattr(lib, f"repro_fused_query_packed32_{kind}")(
-                blocks.data_ptr(), stw.data_ptr(), l.data_ptr(), r.data_ptr(), idx.data_ptr(),
-                val.data_ptr(), b, nb, bs, spec.idx_bits, spec.kmin, int(fetch == "dma"), tile,
-                stream,
-            )
-        else:
-            body = "quantized"
-            code = getattr(lib, f"repro_fused_query_quantized_{kind}")(
-                blocks.data_ptr(), stw.data_ptr(), bmin_val.data_ptr(), l.data_ptr(), r.data_ptr(),
-                idx.data_ptr(), val.data_ptr(), b, nb, bs, spec.idx_bits, tile, stream,
-            )
-        _build.check(code, f"fused_query_packed[{body}]")
+    name = _PACKED_ENTRY[spec.layout, val_dtype]
+    if spec.layout == "packed32":
+        body = f"packed32[{fetch}]"
+        args = (
+            blocks.data_ptr(), stw.data_ptr(), l.data_ptr(), r.data_ptr(), idx.data_ptr(),
+            val.data_ptr(), b, nb, bs, spec.idx_bits, spec.kmin, int(fetch == "dma"), tile,
+        )
+    else:
+        body = "quantized"
+        args = (
+            blocks.data_ptr(), stw.data_ptr(), bmin_val.data_ptr(), l.data_ptr(), r.data_ptr(),
+            idx.data_ptr(), val.data_ptr(), b, nb, bs, spec.idx_bits, tile,
+        )
+    _build.launch(name, f"fused_query_packed[{body}]", dev, *args)
     with _count_lock:
         fused_query_packed.launches += 1
         fused_query_packed.launches_by_body[body] += 1

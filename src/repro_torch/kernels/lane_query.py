@@ -25,7 +25,7 @@ from .tuning import DEFAULT_TILE
 
 __all__ = ["lane_partials", "lane_partials_plain", "DEFAULT_TILE"]
 
-_DTYPES = {torch.float32: "f32", torch.int32: "i32"}
+_ENTRY = {torch.float32: "repro_lane_partials_f32", torch.int32: "repro_lane_partials_i32"}
 _count_lock = threading.Lock()
 
 
@@ -59,7 +59,7 @@ def lane_partials(
     ``xs`` and the four scan planes are ``(nsub, 128)``; one kernel launch
     per batch on the card, ``tile`` queries (warps) per thread block.
     """
-    if xs.ndim != 2 or xs.shape[1] != LANE or xs.dtype not in _DTYPES:
+    if xs.ndim != 2 or xs.shape[1] != LANE or xs.dtype not in _ENTRY:
         raise TypeError(
             f"lane_partials takes (nsub, {LANE}) float32 or int32 rows, got "
             f"{xs.dtype} {tuple(xs.shape)}"
@@ -91,15 +91,11 @@ def lane_partials(
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return val, idx
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"repro_lane_partials_{_DTYPES[xs.dtype]}")
-        code = fn(
-            xs.data_ptr(), *(t.data_ptr() for t in planes), *(a.data_ptr() for a in args),
-            val.data_ptr(), idx.data_ptr(), b, xs.shape[0], tile, stream,
-        )
-        _build.check(code, "lane_partials")
+    _build.launch(
+        _ENTRY[xs.dtype], "lane_partials", dev,
+        xs.data_ptr(), *(t.data_ptr() for t in planes), *(a.data_ptr() for a in args),
+        val.data_ptr(), idx.data_ptr(), b, xs.shape[0], tile,
+    )
     with _count_lock:
         lane_partials.launches += 1
     return val, idx

@@ -24,7 +24,7 @@ from .tuning import DEFAULT_TILE
 
 __all__ = ["rmq_partials", "rmq_partials_plain", "DEFAULT_TILE"]
 
-_DTYPES = {torch.float32: "f32", torch.int32: "i32"}
+_ENTRY = {torch.float32: "repro_rmq_partials_f32", torch.int32: "repro_rmq_partials_i32"}
 _count_lock = threading.Lock()
 
 
@@ -58,7 +58,7 @@ def rmq_partials(x_blocks, bl, br, lstart, lend, rend, *, tile: int = DEFAULT_TI
     One kernel launch per batch on the card, ``tile`` queries (warps) per
     thread block; the bounds are cast to int32 on ``x_blocks``'s device.
     """
-    if x_blocks.ndim != 2 or x_blocks.dtype not in _DTYPES:
+    if x_blocks.ndim != 2 or x_blocks.dtype not in _ENTRY:
         raise TypeError(
             f"rmq_partials takes (nb, bs) float32 or int32 blocks, got "
             f"{x_blocks.dtype} {tuple(x_blocks.shape)}"
@@ -73,6 +73,7 @@ def rmq_partials(x_blocks, bl, br, lstart, lend, rend, *, tile: int = DEFAULT_TI
         raise ValueError(f"rmq_partials runs on cuda or cpu tensors, got {dev}")
     if not x_blocks.is_contiguous():
         raise ValueError("rmq_partials needs a contiguous x_blocks")
+    _build.check_pieces(x_blocks, "x_blocks", "rmq_partials")
     if not 1 <= tile <= 32:
         raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
     nb, bs = x_blocks.shape
@@ -82,15 +83,11 @@ def rmq_partials(x_blocks, bl, br, lstart, lend, rend, *, tile: int = DEFAULT_TI
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return val, idx
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(lib, f"repro_rmq_partials_{_DTYPES[x_blocks.dtype]}")
-        code = fn(
-            x_blocks.data_ptr(), *(a.data_ptr() for a in args), val.data_ptr(), idx.data_ptr(),
-            b, nb, bs, tile, stream,
-        )
-        _build.check(code, "rmq_partials")
+    _build.launch(
+        _ENTRY[x_blocks.dtype], "rmq_partials", dev,
+        x_blocks.data_ptr(), *(a.data_ptr() for a in args), val.data_ptr(), idx.data_ptr(),
+        b, nb, bs, tile,
+    )
     with _count_lock:
         rmq_partials.launches += 1
     return val, idx

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import block_rmq, lane_rmq, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
+from repro_torch.kernels.edge_batch import edge_batch
 from repro_torch.kernels.fused_query import (
     fused_query,
     fused_query_packed,
@@ -159,3 +160,38 @@ def test_packed_serve_cli_on_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "layout quantized" in out and "verify[64] OK" in out
     assert fused_query_packed.launches_by_body["quantized"] > before
+
+
+@pytest.mark.parametrize("b", [1, 4099])
+@pytest.mark.parametrize("bs", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
+    """The kernels that read rows in 16-byte pieces (fused_query both
+    fetches, quantized fused_query_packed, rmq_partials) against their plain
+    versions on ``edge_batch``, the inputs tests/test_torch_kernels.py holds
+    to the reference; tiles 1 and 8, bit for bit. A misaligned x_blocks
+    raises."""
+    x, l, r = edge_batch(bs, dtype, b)
+    lt, rt = torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda)
+    s = ops.build(x, bs, device=cuda)
+    args = (s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lt, rt)
+    tables = dict(st_val=s.st_val, st_gidx=s.st_gidx)
+    for fetch in ("resident", "dma"):
+        want = fused_query_plain(*args, **tables, fetch=fetch)
+        for tile in (1, 8):
+            _same_bits(fused_query(*args, **tables, fetch=fetch, tile=tile), want)
+    bl, br = lt // bs, rt // bs
+    ls, re = lt - bl * bs, rt - br * bs
+    pargs = (s.x_blocks, bl, br, ls, torch.where(bl == br, re, bs - 1), re)
+    want = rmq_partials_plain(*pargs)
+    for tile in (1, 8):
+        _same_bits(rmq_partials(*pargs, tile=tile), want)
+    xq = edge_batch(bs, dtype, b, finite=True)[0]
+    q, spec = ops.build_packed(xq, bs, layout="quantized", device=cuda)
+    want = fused_query_packed_plain(q.blocks, q.stw, lt, rt, spec=spec, bmin_val=q.bmin_val)
+    for tile in (1, 8):
+        got = fused_query_packed(q.blocks, q.stw, lt, rt, spec=spec, bmin_val=q.bmin_val, tile=tile)
+        _same_bits(got, want)
+    shifted = torch.empty(s.x_blocks.numel() + 1, dtype=s.x_blocks.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_query(shifted.view(s.x_blocks.shape), *args[1:], **tables, fetch="dma")

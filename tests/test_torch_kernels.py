@@ -29,6 +29,7 @@ from repro.kernels.rmq_query import rmq_partials as jax_rmq_partials
 from repro_torch.core import block_rmq, sparse_table
 from repro_torch.kernels import _build, ops, tuning
 from repro_torch.kernels.block_min import block_min
+from repro_torch.kernels.edge_batch import edge_batch
 from repro_torch.kernels.fused_query import fused_query, fused_query_packed, fused_query_packed_plain
 from repro_torch.kernels.ref import block_min_ref, rmq_partials_ref
 from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
@@ -338,6 +339,73 @@ def test_fused_query_packed_checks_its_inputs():
         fused_query_packed(s32.blocks.to("meta"), s32.stw.to("meta"), [0], [5], spec=spec32)
     idx, val = fused_query_packed(s32.blocks, s32.stw, [3], [290], spec=spec32)
     assert idx.tolist() == [3] and val.dtype == torch.int32 and val.tolist() == [3]
+
+
+# --- the fused body's load scheme: edge_batch ----------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 4099])
+@pytest.mark.parametrize("bs", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("kernel", ["resident", "dma", "quantized", "rmq_partials"])
+def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
+    """The kernels whose rows the CUDA body reads in 16-byte pieces, against
+    the Pallas kernels in interpret mode on ``edge_batch`` (ranges cut at
+    4j, 4j+3 and mid-piece; minima tied across rows, neighbouring lanes and
+    pieces; zeros of both signs; maxval minima; bucket collisions): same
+    bits, -0.0 included. Where the minimum is not the padding value the
+    answer is the oracle's (a maxval range resolves to the leftmost masked
+    lane, as in the reference)."""
+    x, l, r = edge_batch(bs, dtype, b, finite=kernel == "quantized")
+    jl, jr = jnp.asarray(l), jnp.asarray(r)
+    if kernel == "rmq_partials":
+        xb = block_rmq.pad_blocks(torch.from_numpy(x), bs)
+        bl, br = l // bs, r // bs
+        ls, re = l - bl * bs, r - br * bs
+        args = [a.astype(np.int32) for a in (bl, br, ls, np.where(bl == br, re, bs - 1), re)]
+        want = jax_rmq_partials(jnp.asarray(to_np(xb)), *map(jnp.asarray, args), tile=8, interpret=True)
+        _assert_bits(want, rmq_partials(xb, *args, tile=8))
+        return
+    if kernel == "quantized":
+        js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout="quantized")
+        ps, spec = ops.build_packed(x, bs, layout="quantized", device="cpu")
+        want = jax_fused_query_packed(
+            js.blocks, js.stw, jl, jr, spec=jspec, bmin_val=js.bmin_val, tile=8, interpret=True
+        )
+        got = fused_query_packed(ps.blocks, ps.stw, l, r, spec=spec, bmin_val=ps.bmin_val)
+    else:
+        js = jax_ops.build(jnp.asarray(x), bs, interpret=True)
+        want = jax_fused_query(
+            js.x_blocks, js.bmin_val, js.bmin_gidx, js.st.idx, jl, jr,
+            st_val=js.st_val, st_gidx=js.st_gidx, fetch=kernel, interpret=True,
+        )
+        ps = ops.build(x, bs, device="cpu")
+        assert_same_structure(js, ps)
+        got = fused_query(
+            ps.x_blocks, ps.bmin_val, ps.bmin_gidx, ps.st.idx, l, r,
+            st_val=ps.st_val, st_gidx=ps.st_gidx, fetch=kernel,
+        )
+    _assert_bits(want, got)
+    gold = ref.rmq_ref(x, l, r)
+    real = x[gold] != np.max(x)
+    np.testing.assert_array_equal(to_np(got[0])[real], gold[real])
+
+
+@pytest.mark.parametrize("fetch", ["resident", "dma"])
+def test_interior_zero_sign_matches_pallas(fetch):
+    """The smallest input of a fault of the port (ROADMAP.md §3): interior
+    blocks 1..3 with a +0.0 in block 1 and a -0.0 in block 3, so the lo cell
+    (blocks 1-2) holds +0.0 and the hi cell (blocks 2-3) -0.0. The reference
+    takes ``jnp.minimum`` of the two cells, -0.0, with the lo cell's index;
+    the port took the lo cell's +0.0."""
+    bs = 128
+    x = np.ones(5 * bs, np.float32)
+    x[bs], x[3 * bs] = 0.0, -0.0
+    js = jax_ops.build(jnp.asarray(x), bs, interpret=True)
+    want = jax_ops.query(js, jnp.asarray([0]), jnp.asarray([x.size - 1]), fetch=fetch, interpret=True)
+    got = ops.query(ops.build(x, bs, device="cpu"), [0], [x.size - 1], fetch=fetch)
+    _assert_bits(want, got)
+    assert int(got[0][0]) == bs and to_np(got[1]).view(np.int32)[0] == np.int32(-(2**31))
 
 
 # --- no quiet fallback -----------------------------------------------------

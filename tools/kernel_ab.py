@@ -1,0 +1,199 @@
+"""Time the query kernels of one checkout's repro_torch on the card, warm and cold.
+
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME]
+
+Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``)
+and the timing helpers of this checkout's ``chip_smoke.py``, so two trees
+are timed by one piece of code. To compare a parent commit with the working
+tree on one card, unpack the parent into a directory that ``.gitignore``
+lists and run the two in turns (parent, change, change, parent) on the
+same card, one after another:
+
+    mkdir -p build/parent && git archive <parent> src | tar -x -C build/parent
+    for t in parent change change parent; do
+        src=src; [ $t = parent ] && src=build/parent/src
+        python3 tools/kernel_ab.py --label $t --src $src
+    done
+
+Rows, float32, one batch of B = 4096 queries with lengths uniform in
+[1, 8192] (``chip_smoke._queries``): ``fused_query`` resident and dma at
+n = 2^20 and n = 2^26, quantized ``fused_query_packed`` and
+``rmq_partials`` at n = 2^26; ``fused_query`` dma at n = 2^26 also for one
+query (B = 1) and at tiles 4, 16 and 32 (the rows above: 8). For each,
+``chip_smoke.kernel_times``: ``ms``
+(device time, the batch launched again and again, so L2 is warm),
+``cold_ms`` (L2 flushed before every launch) and ``call_ms`` (one wrapper
+call, host work included). Then the host cost of the parts of one
+``fused_query`` dma call at n = 2^26, in microseconds from
+``time.perf_counter_ns``. Prints the card line and one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def per_call_us(torch, fn, reps: int = 2000, sync_every: int = 64) -> float:
+    """Mean host time of ``fn()`` in microseconds; the card is synchronised
+    every ``sync_every`` calls, outside the timed spans, so launches never
+    wait on a full queue."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0
+    for i in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        total += time.perf_counter_ns() - t0
+        if (i + 1) % sync_every == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return total / reps / 1e3
+
+
+def host_parts(torch, s, lt, rt, fused_query, lib) -> dict:
+    """What one ``fused_query`` dma call spends on the host, part by part:
+    the call as a whole, then each thing the wrapper does, alone."""
+    dev = s.x_blocks.device
+    nb, bs = s.x_blocks.shape
+    b = lt.shape[0]
+    leaves = (s.x_blocks, s.st_val, s.st_gidx)
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    val = torch.empty(b, dtype=torch.float32, device=dev)
+    fn = lib.repro_fused_query_f32
+    kind = "f32"
+    lock = threading.Lock()
+    box = [0]
+
+    def launch():
+        fn(s.x_blocks.data_ptr(), None, None, None, s.st_val.data_ptr(), s.st_gidx.data_ptr(),
+           lt.data_ptr(), rt.data_ptr(), idx.data_ptr(), val.data_ptr(), b, nb, bs, 1, 8,
+           torch.cuda.current_stream().cuda_stream)
+
+    def checks():
+        for t in leaves:
+            if t.dtype not in (torch.float32, torch.int32) or t.device != dev or t.ndim != 2 or not t.is_contiguous():
+                raise ValueError
+
+    def count():
+        with lock:
+            box[0] += 1
+
+    def own_device_stream():
+        if dev.index is None or dev.index == torch.cuda.current_device():
+            return torch.cuda.current_stream().cuda_stream
+        raise ValueError
+
+    def device_context_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    parts = {
+        "fused_query call": lambda: fused_query(
+            s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lt, rt,
+            st_val=s.st_val, st_gidx=s.st_gidx, fetch="dma",
+        ),
+        "bounds to int32 on the card (x2)": lambda: (
+            lt.to(device=dev, dtype=torch.int32), rt.to(device=dev, dtype=torch.int32)
+        ),
+        "leaf checks (x3)": checks,
+        "torch.empty outputs (x2)": lambda: (
+            torch.empty(b, dtype=torch.int32, device=dev), torch.empty(b, dtype=torch.float32, device=dev)
+        ),
+        "data_ptr (x8)": lambda: [t.data_ptr() for t in (*leaves, lt, rt, idx, val, s.x_blocks)],
+        "getattr on an f-string": lambda: getattr(lib, f"repro_fused_query_{kind}"),
+        "torch.cuda.device context + stream": device_context_stream,
+        "current-device test + stream": own_device_stream,
+        "ctypes call (the launch)": launch,
+        "launch count under a lock": count,
+    }
+    return {name: per_call_us(torch, f) for name, f in parts.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory holding repro_torch")
+    ap.add_argument("--label", default="change")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fused_query import fused_query, fused_query_packed
+    from repro_torch.kernels.rmq_query import rmq_partials
+
+    dev = torch.device("cuda")
+    card = cs._card_line()
+    lib = _build.library()
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    rows = {}
+    for n, seed in ((cs.N_RESIDENT, 1), (cs.N_MAIN, 2)):
+        x = np.random.default_rng(seed).random(n, dtype=np.float32)
+        l, r = cs._queries(np.random.default_rng(seed + 10), n, 4096)
+        lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
+        s = ops.build(x, 128, device=dev)
+        for fetch in ("resident", "dma"):
+            call = lambda: fused_query(
+                s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lt, rt,
+                st_val=s.st_val, st_gidx=s.st_gidx, fetch=fetch,
+            )
+            rows[f"fused_query[{fetch}] n=2^{n.bit_length() - 1}"] = cs.kernel_times(
+                torch, call, "fused_query_kernel", flush
+            )
+        if n != cs.N_MAIN:
+            continue
+        # What the batch's width costs: one query alone, and other tiles.
+        l1, r1 = lt[:1], rt[:1]
+        rows["fused_query[dma] n=2^26 B=1"] = cs.kernel_times(
+            torch,
+            lambda: fused_query(
+                s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, l1, r1,
+                st_val=s.st_val, st_gidx=s.st_gidx, fetch="dma",
+            ),
+            "fused_query_kernel",
+            flush,
+        )
+        for tile in (4, 16, 32):
+            rows[f"fused_query[dma] n=2^26 tile={tile}"] = cs.kernel_times(
+                torch,
+                lambda: fused_query(
+                    s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lt, rt,
+                    st_val=s.st_val, st_gidx=s.st_gidx, fetch="dma", tile=tile,
+                ),
+                "fused_query_kernel",
+                flush,
+            )
+        parts = host_parts(torch, s, lt, rt, fused_query, lib)
+        bl, br = lt // 128, rt // 128
+        ls, re = lt - bl * 128, rt - br * 128
+        pargs = (s.x_blocks, bl, br, ls, torch.where(bl == br, re, 127), re)
+        rows["rmq_partials n=2^26"] = cs.kernel_times(
+            torch, lambda: rmq_partials(*pargs), "rmq_partials_kernel", flush
+        )
+        del s
+        q, spec = ops.build_packed(x, 128, layout="quantized", device=dev)
+        rows["fused_query_packed[quantized] n=2^26"] = cs.kernel_times(
+            torch,
+            lambda: fused_query_packed(q.blocks, q.stw, lt, rt, spec=spec, bmin_val=q.bmin_val),
+            "QuantizedCells",
+            flush,
+        )
+    print(card)
+    print(json.dumps({"label": args.label, "src": args.src, "card": card, "rows": rows, "host_us": parts}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
