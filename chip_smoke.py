@@ -23,10 +23,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 2^26 float32 and int32, ``ops.query(fused=False)`` equal to
    ``ops.query`` and ``ops.lane_query`` equal to ``core.lane_rmq.query``,
    both checked against the oracle on a sample. B in {4096, 4099}, bit for
-   bit. Then every kernel against its plain version on
-   ``kernels.edge_batch`` (ranges cut at 4j, 4j+3 and mid-piece, ties
-   across rows, lanes and pieces, zeros of both signs, maxval minima,
-   quantized bucket collisions) at bs in {128, 256}, B in {1, 4099};
+   bit. Also timed: packed32 and ``lane_partials`` for one query (B = 1,
+   their floor), and ``lane_partials`` on lengths uniform in [1, 128]
+   (about half inside one lane block). Then every kernel against its plain
+   version on ``kernels.edge_batch`` (ranges cut at 4j, 4j+3 and mid-piece,
+   ties across rows, lanes and pieces, zeros of both signs, maxval minima,
+   quantized bucket collisions; packed32 on its small-span values, int32
+   and float32) at bs in {128, 256}, B in {1, 4099}, tiles 1 and 8, and
+   ``lane_partials`` also on a batch whose queries all lie inside single
+   lane blocks;
 5. the served paths. Through ``repro_torch.launch.serve.main``: hybrid and
    fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 (where the
    resident fetch serves), hybrid async at n = 2^26 with small and medium
@@ -147,11 +152,11 @@ def _max_abs_err(torch, a, b) -> float:
     return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
 
 
-def _queries(rng, n: int, b: int):
-    """Lengths uniform in [1, 8192], plus a full-range and two l == r queries."""
+def _queries(rng, n: int, b: int, max_len: int = 8192):
+    """Lengths uniform in [1, max_len], plus a full-range and two l == r queries."""
     import numpy as np
 
-    length = rng.integers(1, min(8192, n) + 1, b)
+    length = rng.integers(1, min(max_len, n) + 1, b)
     l = rng.integers(0, n - length + 1)
     r = l + length - 1
     l[:3] = [0, 7, n - 1]
@@ -450,19 +455,21 @@ def main() -> int:
                     f"fused_query_packed {layout} {fetch} {kind} n={n} B={b} != plain",
                 )
                 outs[fetch] = (ki, kv)
-                if b != 4096 or timed is None:
+                if b != 4096 or fetch != timed:
                     continue
+                # The two packed32 fetches launch one body (checked equal
+                # below): the row times the fetch the size selects.
                 call = lambda: fused_query_packed(*args, **kw, fetch=fetch)
-                # Both packed32 fetches are timed at both sizes, so the two
-                # read strategies are compared at the same n; the row keeps
-                # the fetch the size selects.
                 t = kernel_times(torch, call, kname[layout], flush)
-                if fetch != timed:
-                    print(
-                        f"[fused_query_packed] {layout} {fetch} {kind} n={n} B={b}: kernel "
-                        f"{t['ms']} ms/batch on the device, {t['cold_ms']} ms with L2 flushed"
+                if layout == "packed32":  # the floor: one query alone
+                    t1 = kernel_times(
+                        torch, lambda: fused_query_packed(s.blocks, s.stw, lt[:1], rt[:1], **kw, fetch=fetch),
+                        kname[layout], flush,
                     )
-                    continue
+                    print(
+                        f"[fused_query_packed] {layout} {fetch} {kind} n={n} B=1: kernel "
+                        f"{t1['ms']} ms on the device, {t1['cold_ms']} ms with L2 flushed"
+                    )
                 name = f"fused_query_packed[{layout},{fetch}]" if layout == "packed32" else "fused_query_packed[quantized]"
                 plain_ms = _time_ms(torch, lambda: fused_query_packed_plain(*args, **kw))
                 bound_ms = _packed_bytes(l, r, 128, 4, layout) / HBM_BYTES_PER_S * 1e3
@@ -545,6 +552,22 @@ def main() -> int:
                 kernels[name] = dict(
                     **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
                 )
+            # lane_partials where about half the queries lie inside one lane
+            # block (lengths uniform in [1, 128]), and one query alone.
+            sl_, sr_ = _queries(np.random.default_rng(5), N_MAIN, b, max_len=128)
+            slt, srt = torch.from_numpy(sl_).to(dev), torch.from_numpy(sr_).to(dev)
+            short = (*planes, slt // 128, srt // 128, slt % 128, srt % 128)
+            got, want = lane_partials(*short), lane_partials_plain(*short)
+            torch.cuda.synchronize()
+            _require(all(same_bits(g, w) for g, w in zip(got, want)), "lane_partials != plain on short ranges")
+            first = tuple(a[:1] for a in largs[5:])
+            for what, a in (("lengths in [1, 128]", short), ("B=1", (*planes, *first))):
+                t = kernel_times(torch, lambda: lane_partials(*a), "lane_partials_kernel", flush)
+                print(
+                    f"[lane_partials] f32 n={N_MAIN} {what}: kernel {t['ms']} ms on the device, "
+                    f"{t['cold_ms']} ms with L2 flushed"
+                )
+            del short, first, a  # the served runs measure their own peak memory
         del fs, ls_, planes, pargs, largs
 
     # --- phase 4b: every kernel on edge_batch, bs = 128 and 256 -------------
@@ -577,27 +600,39 @@ def main() -> int:
                     all(same_bits(g, w) for g, w in zip(rmq_partials(*pargs), rmq_partials_plain(*pargs))),
                     f"rmq_partials != plain on {what}",
                 )
-                layouts = {"quantized": edge_batch(bs, dtype, b, finite=True)[0]}
-                if dtype == "int32":  # packed32 needs a small key span: the padding blocks hold 8
-                    layouts["packed32"] = np.minimum(x, 8)
-                for layout, xq in layouts.items():
+                # packed32 needs a small key span: the batch's small-span values
+                xp, lp, rp = edge_batch(bs, dtype, b, small_span=True)
+                packed = {
+                    "quantized": (edge_batch(bs, dtype, b, finite=True)[0], lt, rt),
+                    "packed32": (xp, torch.from_numpy(lp).to(dev), torch.from_numpy(rp).to(dev)),
+                }
+                for layout, (xq, lq, rq) in packed.items():
                     q, spec = ops.build_packed(xq, bs, layout=layout, device=dev)
                     kw = dict(spec=spec, bmin_val=q.bmin_val)
-                    want = fused_query_packed_plain(q.blocks, q.stw, lt, rt, **kw)
+                    want = fused_query_packed_plain(q.blocks, q.stw, lq, rq, **kw)
                     for fetch in ("resident", "dma") if layout == "packed32" else ("resident",):
-                        got = fused_query_packed(q.blocks, q.stw, lt, rt, **kw, fetch=fetch)
-                        _require(
-                            all(same_bits(g, w) for g, w in zip(got, want)),
-                            f"fused_query_packed {layout} {fetch} != plain on {what}",
-                        )
+                        for tile in (1, 8):
+                            got = fused_query_packed(q.blocks, q.stw, lq, rq, **kw, fetch=fetch, tile=tile)
+                            _require(
+                                all(same_bits(g, w) for g, w in zip(got, want)),
+                                f"fused_query_packed {layout} {fetch} tile={tile} != plain on {what}",
+                            )
                 ls_ = lane_rmq.build(x, device=dev)
-                sl, sr = lt // 128, rt // 128
-                largs = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx,
-                         sl, sr, lt - sl * 128, rt - sr * 128)
-                _require(
-                    all(same_bits(g, w) for g, w in zip(lane_partials(*largs), lane_partials_plain(*largs))),
-                    f"lane_partials != plain on {what}",
-                )
+                planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
+                # ... and a batch whose queries all lie inside single lane blocks
+                brng = np.random.default_rng(bs + b)
+                blk = brng.integers(0, x.size // 128, b)
+                lo, hi = brng.integers(0, 128, b), brng.integers(0, 128, b)
+                inside = (blk * 128 + np.minimum(lo, hi), blk * 128 + np.maximum(lo, hi))
+                for lq, rq in ((lt, rt), tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in inside)):
+                    sl, sr = lq // 128, rq // 128
+                    largs = (*planes, sl, sr, lq - sl * 128, rq - sr * 128)
+                    want = lane_partials_plain(*largs)
+                    for tile in (1, 8):
+                        _require(
+                            all(same_bits(g, w) for g, w in zip(lane_partials(*largs, tile=tile), want)),
+                            f"lane_partials tile={tile} != plain on {what}",
+                        )
                 print(f"[edge_batch] bs={bs} {dtype} B={b}: every kernel == plain, bit for bit (tiles 1 and 8)")
     del flush  # the served runs measure their own peak memory
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s")

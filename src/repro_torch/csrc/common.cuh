@@ -1,7 +1,7 @@
 // Shared device code of the RMQ kernels: the padding value of each value
-// type, the leftmost warp reductions, the sign of a zero minimum, the masked
-// leftmost min of one row, the per-query decomposition, the partial stage of
-// a blocked query and the fused blocked-query kernel.
+// type, the leftmost warp reductions, the sign of a zero minimum, the
+// per-query decomposition, the 16-byte row pieces and their per-lane fold,
+// the partial stage of a blocked query and the fused blocked-query kernel.
 //
 // The fused body replaces the per-query work of the Pallas TPU megakernels
 // ``fused_query`` (body ``_kernel``) and ``fused_query_packed`` quantized
@@ -28,9 +28,13 @@
 // partial rows (a lane whose four values miss the range loads nothing); the
 // resident or quantized hop is issued next, while the rows arrive; then both
 // rows reduce in the same five shuffle rounds, and the sign of a zero minimum
-// comes from the values the lanes already hold. Dependent round trips per
-// query: 2 for dma (the bounds; the rows and cells together), 3 for resident
-// and quantized (the hop).
+// comes from the values the lanes already hold. Written for 2 dependent
+// round trips per query for dma (the bounds; the rows and cells together)
+// and 3 for resident and quantized (the hop). The SASS of the dma body
+// shows 3: the compiler sinks the cell loads, which sit behind a branch,
+// past the rows' fold, and the hop waits behind them. An unconditional load
+// from the clamped cell, as fused_query_packed.cu's packed32 body does, is
+// queued (PERF.md §7).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -121,9 +125,8 @@ __device__ __forceinline__ void warp_leftmost_min2(T& a, int& ap, T& b, int& bp)
 // is -0.0 when the minimum is zero and a -0.0 takes part, whichever zero
 // comes first; the pair reductions keep the leftmost zero's bits.
 //
-// ``zero_sign`` (block_min.cu, and ``row_min`` for lane_partials.cu): when
-// (and only when) the warp's minimum ``v`` is a zero, its lanes scan
-// row[lo..hi] again for a -0.0 and vote. ``signed_zero``: the same vote over
+// ``zero_sign`` (block_min.cu): when (and only when) the warp's minimum
+// ``v`` is a zero, its lanes scan row[lo..hi] again for a -0.0 and vote. ``signed_zero``: the same vote over
 // a flag each lane set while it folded its values, with no second read.
 // ``v`` is the same in every lane, so the warp branches together. Integers
 // have one zero.
@@ -143,26 +146,6 @@ __device__ __forceinline__ int32_t signed_zero(int32_t v, bool) { return v; }
 __device__ __forceinline__ float signed_zero(float v, bool neg) {
   if (v != 0.0f) return v;
   return __any_sync(kFullMask, neg) ? -0.0f : 0.0f;
-}
-
-// Masked leftmost min of row[lo..hi] by one warp: lane t reads elements t,
-// t+32, ... (one coalesced 128-byte read per step for 4-byte values); lanes
-// outside [lo, hi] skip the load and carry maxval at their own position,
-// exactly the reference's masked lanes, so even a range whose minimum is
-// maxval resolves as ``min(where(x == vmin, iota, bs))`` does, and the value
-// is ``jnp.min``'s (zero_sign). Every lane ends with the pair.
-template <typename T>
-__device__ __forceinline__ void row_min(const T* __restrict__ row, int lo, int hi, int bs,
-                                        int lane, T& v, int& pos) {
-  const T big = MaxVal<T>::get();
-  v = big;
-  pos = bs;
-  for (int p = lane; p < bs; p += 32) {
-    const T x = (p >= lo && p <= hi) ? row[p] : big;
-    take_leftmost(x, p, v, pos);
-  }
-  warp_leftmost_min(v, pos);
-  v = zero_sign(row, lo, hi, bs, lane, v);
 }
 
 // The warp's query id: ``tile`` warps (queries) per thread block.

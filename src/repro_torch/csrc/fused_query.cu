@@ -35,8 +35,9 @@
 // shares) used to walk the left row, then the right row, in 4-byte steps,
 // and only then read the cells from lane 0: 4 dependent round trips for dma,
 // 5 for resident. It now issues the cells and both rows in 16-byte pieces
-// at once, the hop right after: 2 round trips for dma, 3 for resident. This
-// file holds the two interiors.
+// at once, the hop right after: written for 2 round trips for dma and 3 for
+// resident, 3 for dma in the SASS (common.cuh). This file holds the two
+// interiors.
 
 #include "common.cuh"
 

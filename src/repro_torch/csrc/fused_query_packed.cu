@@ -11,13 +11,9 @@
 //     interior min(stw[k, ilo], stw[k, bpos]) (only when br - bl >= 2); the
 //     answer is the min of the three words, which IS the leftmost minimum.
 //     The kernel unpacks it (packing.unpack_idx / unpack_val) and writes
-//     (idx, val). Two fetches, as in the reference:
-//       resident: lane 0 reads the two interior cells after the partial
-//                 scans (the loads depend on nothing but wait behind them);
-//       dma:      lanes 0 and 1 issue the two cell loads before the scans,
-//                 so their latency overlaps the row reads (the TPU's DMA
-//                 windows, which also overlapped the partial compute).
-//     Both read the same cells and give the same bits.
+//     (idx, val). The reference's two fetches (resident: the whole stw row;
+//     dma: a window around each cell) read the same two cells; on the card
+//     both names launch this one body, which reads the two cells directly.
 //   quantized (``_kernel_quantized``): blocks are raw values (maxval-padded)
 //     and the kernel is ``fused_query_kernel`` of common.cuh (fused_query.cu's
 //     body) with its own interior cells; stw holds (bucket << idx_bits |
@@ -44,21 +40,34 @@
 //     and 1 now load the two stw words together with both rows (16-byte
 //     pieces), and each issues its own bmin_val hop before the rows reduce:
 //     3 round trips (common.cuh).
-//   packed32: the word scans still step 4 bytes at a time, one row after the
-//     other, and reduce with __reduce_min_sync (the word order already breaks
-//     ties leftmost); giving them the pieces of common.cuh is later work.
+//   packed32: the first version scanned the left row in 4-byte steps and
+//     reduced it, then the right row, and read the two cells only after both
+//     (resident) or before the scans (dma), dividing by a runtime block size:
+//     4 dependent round trips for resident, 3 for dma. Now, after the bounds,
+//     the warp loads the two cells (lanes 0 and 1 keep them) and every lane
+//     one 16-byte piece per 128 words of both rows, all at once (``load_piece`` fills a piece that
+//     misses the range with the pad word and loads nothing); each lane folds
+//     its pieces and its cell into one word min, and one __reduce_min_sync
+//     gives the answer (the word order breaks ties leftmost, and a word has
+//     no signed zero). 2 dependent round trips for both fetches; the block
+//     size is a constant at bs = 128, so the bounds' divisions are shifts.
 
 #include "common.cuh"
 
 namespace repro {
 
-__device__ __forceinline__ int32_t word_row_min(const int32_t* __restrict__ row, int lo, int hi,
-                                                int bs, int lane) {
-  int32_t w = 0x7fffffff;  // pad_word of packed32
-  for (int p = lane; p < bs; p += 32) {
-    if (p >= lo && p <= hi) w = min(w, row[p]);
+constexpr int32_t kPadWord = 0x7fffffff;  // packing.pad_word of packed32
+
+// The least of one piece's words at positions p0..p0+3 that lie in [lo, hi];
+// the pad word when none does.
+__device__ __forceinline__ int32_t piece_word_min(int4 w, int p0, int lo, int hi) {
+  const int32_t words[4] = {w.x, w.y, w.z, w.w};
+  int32_t m = kPadWord;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (p0 + e >= lo && p0 + e <= hi) m = min(m, words[e]);
   }
-  return __reduce_min_sync(0xffffffffu, w);
+  return m;
 }
 
 // Decode one packed32 word's value field (packing.unpack_val).
@@ -73,35 +82,49 @@ __device__ __forceinline__ int32_t unkey<int32_t>(int32_t key) {
   return key;
 }
 
-template <typename T, bool kDma>
-__global__ void fused_query_packed32_kernel(const int32_t* __restrict__ blocks,
-                                            const int32_t* __restrict__ stw,
-                                            const int32_t* __restrict__ L,
-                                            const int32_t* __restrict__ R,
-                                            int32_t* __restrict__ out_idx, T* __restrict__ out_val,
-                                            int B, int nb, int bs, int idx_bits, int kmin) {
+// Both fetches: ``C`` pieces of each row in flight at once (1 at bs = 128,
+// where the block size is a constant, else 2).
+template <typename T, int C>
+__global__ void __launch_bounds__(1024)
+    fused_query_packed32_kernel(const int32_t* __restrict__ blocks,
+                                const int32_t* __restrict__ stw, const int32_t* __restrict__ L,
+                                const int32_t* __restrict__ R, int32_t* __restrict__ out_idx,
+                                T* __restrict__ out_val, int B, int nb, int bs_arg, int idx_bits,
+                                int kmin) {
+  const int bs = C == 1 ? kPiece : bs_arg;
   const int lane = threadIdx.x & 31;
   const long long q = warp_query();
   if (q >= B) return;  // whole warp leaves together
-  const int32_t pad = 0x7fffffff;
+  // Round trip 1: the bounds, one broadcast load each per warp.
   const Decomp d = decompose(L[q], R[q], nb, bs);
-  const long long c_lo = (long long)d.k * nb + d.ilo;
-  const long long c_hi = (long long)d.k * nb + d.bpos;
+  const int le = min(d.le, bs - 1);
+  const int rhi = d.br > d.bl ? min(d.re, bs - 1) : -1;  // no right range unless br > bl
+  const int32_t* rowl = blocks + (long long)d.bl * bs;
+  const int32_t* rowr = blocks + (long long)d.br * bs;
 
-  int32_t cell = pad;
-  if (kDma && d.hasint && lane < 2) cell = stw[lane == 0 ? c_lo : c_hi];
-
-  int32_t w = word_row_min(blocks + (long long)d.bl * bs, d.ls, d.le, bs, lane);
-  if (d.br > d.bl) w = min(w, word_row_min(blocks + (long long)d.br * bs, 0, d.re, bs, lane));
-
-  int32_t iw = pad;
-  if (kDma) {
-    const int32_t other = __shfl_sync(0xffffffffu, cell, 1);
-    iw = min(cell, other);
+  // Round trip 2: the two interior cells (lane 0 the lo cell, every other
+  // lane the hi cell) and both rows. The cell load is unconditional (the
+  // clamped cells always lie in stw): behind a branch, the compiler sank it
+  // past the rows' fold, a third round trip.
+  const int32_t cell = __ldg(stw + (long long)d.k * nb + (lane == 0 ? d.ilo : d.bpos));
+  int32_t w = kPadWord;
+  for (int base = 0; base < bs; base += kPiece * C) {
+    int4 pl[C], pr[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int p0 = base + kPiece * j + 4 * lane;
+      pl[j] = load_piece(rowl, p0, d.ls, le);  // le, rhi < bs: no piece past the row loads
+      pr[j] = load_piece(rowr, p0, 0, rhi);
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int p0 = base + kPiece * j + 4 * lane;
+      w = min(w, min(piece_word_min(pl[j], p0, d.ls, le), piece_word_min(pr[j], p0, 0, rhi)));
+    }
   }
+  if (d.hasint && lane < 2) w = min(w, cell);
+  w = __reduce_min_sync(kFullMask, w);
   if (lane != 0) return;
-  if (!kDma && d.hasint) iw = min(stw[c_lo], stw[c_hi]);
-  w = min(w, iw);
   out_idx[q] = w & ((1 << idx_bits) - 1);
   // Unsigned add: a pad word's garbage key must wrap, not overflow (it never
   // wins a min over a non-empty range, as in the reference's unpack_val).
@@ -136,19 +159,21 @@ struct QuantizedCells {
   }
 };
 
+// ``dma`` is the reference's fetch name: both fetches read the same two
+// cells, so both launch the same body.
 template <typename T>
 static int launch_packed32(const void* blocks, const void* stw, const void* l, const void* r,
                            void* out_idx, void* out_val, int B, int nb, int bs, int idx_bits,
-                           int kmin, int dma, int tile, void* stream) {
+                           int kmin, int /*dma*/, int tile, void* stream) {
   const dim3 block(32 * tile);
   const dim3 grid((B + tile - 1) / tile);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dma) {
-    fused_query_packed32_kernel<T, true><<<grid, block, 0, s>>>(
+  if (bs == kPiece) {
+    fused_query_packed32_kernel<T, 1><<<grid, block, 0, s>>>(
         (const int32_t*)blocks, (const int32_t*)stw, (const int32_t*)l, (const int32_t*)r,
         (int32_t*)out_idx, (T*)out_val, B, nb, bs, idx_bits, kmin);
   } else {
-    fused_query_packed32_kernel<T, false><<<grid, block, 0, s>>>(
+    fused_query_packed32_kernel<T, 2><<<grid, block, 0, s>>>(
         (const int32_t*)blocks, (const int32_t*)stw, (const int32_t*)l, (const int32_t*)r,
         (int32_t*)out_idx, (T*)out_val, B, nb, bs, idx_bits, kmin);
   }

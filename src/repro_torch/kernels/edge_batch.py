@@ -31,13 +31,24 @@ __all__ = ["NB", "edge_batch"]
 NB = 24  # blocks of the array (the last one padded)
 
 
-def edge_batch(bs: int, dtype: str, b: int, *, finite: bool = False, seed: int = 0):
+def edge_batch(
+    bs: int, dtype: str, b: int, *, finite: bool = False, small_span: bool = False, seed: int = 0
+):
     """``(x, l, r)``: an array of ``NB * bs - 5`` values and ``b`` int32
     query bounds over it. ``dtype`` is "float32" or "int32". With
     ``finite`` the float array holds float32's largest finite value where it
-    would hold +inf (a quantized build needs a finite value range)."""
+    would hold +inf (a quantized build needs a finite value range). With
+    ``small_span`` the values are those of the int32 batch capped at 8 (its
+    padding blocks hold 8), as int32 or as the float32 values that many ulps
+    from 1.0, with the int32 batch's bounds: a key span packed32 holds."""
     if bs % 128:
         raise ValueError(f"bs must be a multiple of 128, got {bs}")
+    if small_span:
+        x, l, r = edge_batch(bs, "int32", b, seed=seed)
+        x = np.minimum(x, 8)
+        if dtype == "float32":
+            x = (x + np.int32(0x3F800000)).view(np.float32)
+        return x, l, r
     rng = np.random.default_rng(seed)
     n = NB * bs - 5
     if dtype == "float32":

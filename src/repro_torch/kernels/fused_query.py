@@ -273,8 +273,10 @@ def fused_query_packed(
     """Packed fused blocked RMQ. Returns (idx (B,) int32, value (B,)).
 
     One kernel launch per batch on the card over single-plane structures:
-    packed32 (both fetch strategies) and quantized (resident only). packed64
-    raises, as in the reference.
+    packed32 (both fetch strategies, which read the same two cells and
+    launch one body) and quantized (resident only). ``blocks`` rows are read
+    in 16-byte pieces: a multiple of 128 values from a 16-byte aligned base.
+    packed64 raises, as in the reference.
     """
     if spec.layout == "packed64":
         raise ValueError(
@@ -307,11 +309,10 @@ def fused_query_packed(
     _check_leaf("stw", stw, torch.int32, dev, 2, what)
     if stw.shape[1] != nb:
         raise ValueError(f"{what}: stw must have nb = {nb} columns, got {tuple(stw.shape)}")
-    if spec.layout == "packed32":
-        _check_leaf("blocks", blocks, torch.int32, dev, 2, what)
-    else:
-        _check_leaf("blocks", blocks, val_dtype, dev, 2, what)
-        _build.check_pieces(blocks, "blocks", what)
+    word_dtype = torch.int32 if spec.layout == "packed32" else val_dtype
+    _check_leaf("blocks", blocks, word_dtype, dev, 2, what)
+    _build.check_pieces(blocks, "blocks", what)
+    if spec.layout == "quantized":
         _check_leaf("bmin_val", bmin_val, val_dtype, dev, 1, what)
         if bmin_val.shape[0] != nb:
             raise ValueError(f"{what}: bmin_val must have nb = {nb} entries")

@@ -57,7 +57,8 @@ def lane_partials(
     """Fused non-interior lane candidates. Returns (value (B,), global idx (B,) int32).
 
     ``xs`` and the four scan planes are ``(nsub, 128)``; one kernel launch
-    per batch on the card, ``tile`` queries (warps) per thread block.
+    per batch on the card. A warp of the kernel owns 4 queries, one per lane
+    0..3, so ``tile`` is the warps per thread block, 4 queries each.
     """
     if xs.ndim != 2 or xs.shape[1] != LANE or xs.dtype not in _ENTRY:
         raise TypeError(
@@ -85,6 +86,7 @@ def lane_partials(
                 f"lane_partials: {name} must be a contiguous {dtype} {tuple(xs.shape)} tensor "
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    _build.check_pieces(xs, "xs", "lane_partials")
     args = [a.contiguous() for a in args]
     b = args[0].shape[0]
     val = torch.empty(b, dtype=xs.dtype, device=dev)

@@ -167,10 +167,12 @@ def test_packed_serve_cli_on_card(cuda, capsys):
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
     """The kernels that read rows in 16-byte pieces (fused_query both
-    fetches, quantized fused_query_packed, rmq_partials) against their plain
-    versions on ``edge_batch``, the inputs tests/test_torch_kernels.py holds
-    to the reference; tiles 1 and 8, bit for bit. A misaligned x_blocks
-    raises."""
+    fetches, fused_query_packed quantized and packed32 both fetches,
+    rmq_partials, lane_partials) against their plain versions on
+    ``edge_batch``, the inputs tests/test_torch_kernels.py holds to the
+    reference, and lane_partials also on a batch whose queries all lie
+    inside single lane blocks; tiles 1 and 8, bit for bit. A misaligned
+    x_blocks, packed32 blocks or lane xs raises."""
     x, l, r = edge_batch(bs, dtype, b)
     lt, rt = torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda)
     s = ops.build(x, bs, device=cuda)
@@ -195,3 +197,62 @@ def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
     shifted = torch.empty(s.x_blocks.numel() + 1, dtype=s.x_blocks.dtype, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         fused_query(shifted.view(s.x_blocks.shape), *args[1:], **tables, fetch="dma")
+
+    xp, lp, rp = edge_batch(bs, dtype, b, small_span=True)
+    lpt, rpt = torch.from_numpy(lp).to(cuda), torch.from_numpy(rp).to(cuda)
+    p, spec = ops.build_packed(xp, bs, layout="packed32", device=cuda)
+    want = fused_query_packed_plain(p.blocks, p.stw, lpt, rpt, spec=spec)
+    for fetch in ("resident", "dma"):
+        for tile in (1, 8):
+            got = fused_query_packed(p.blocks, p.stw, lpt, rpt, spec=spec, fetch=fetch, tile=tile)
+            _same_bits(got, want)
+    shifted = torch.empty(p.blocks.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_query_packed(shifted.view(p.blocks.shape), p.stw, lpt, rpt, spec=spec)
+
+    ls_ = lane_rmq.build(x, device=cuda)
+    planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
+    rng = np.random.default_rng(bs + b)
+    blk = torch.from_numpy(rng.integers(0, x.size // 128, b, dtype=np.int32)).to(cuda)
+    lo, hi = (torch.from_numpy(rng.integers(0, 128, b, dtype=np.int32)).to(cuda) for _ in range(2))
+    same_block = (blk * 128 + torch.minimum(lo, hi), blk * 128 + torch.maximum(lo, hi))
+    for lq, rq in ((lt, rt), same_block):
+        sl, sr = lq // 128, rq // 128
+        largs = (sl, sr, lq - sl * 128, rq - sr * 128)
+        want = lane_partials_plain(*planes, *largs)
+        for tile in (1, 8):
+            _same_bits(lane_partials(*planes, *largs, tile=tile), want)
+    shifted = torch.empty(ls_.xs.numel() + 1, dtype=ls_.xs.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        lane_partials(shifted.view(ls_.xs.shape), *planes[1:], *largs)
+
+
+@pytest.mark.parametrize("last", ["same", "straddle"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_lane_partials_same_block_warp_on_card(cuda, dtype, last):
+    """The B = 33 shape of tests/test_torch_lane.py through the kernel: the
+    first 32 queries each inside one lane block (the warps' ballots find
+    them and read their rows at once), the 33rd in a warp of one live lane,
+    inside one block or straddling; tiles 1 and 8, bit for bit against the
+    plain version."""
+    rng = np.random.default_rng(33)
+    n = 1000
+    x = rng.integers(0, 25, n).astype(dtype)  # dense ties
+    if dtype == np.float32:
+        x[rng.integers(0, n, n // 5)] = -0.0
+        x[rng.integers(0, n, n // 5)] = 0.0
+    blk = rng.integers(0, n // 128, 33)
+    a, c = rng.integers(0, 128, 33), rng.integers(0, 128, 33)
+    l, r = blk * 128 + np.minimum(a, c), blk * 128 + np.maximum(a, c)
+    l[0], r[0] = 128, 255  # a whole block
+    if last == "straddle":
+        l[32], r[32] = 5, n - 1
+    sl, sr = l // 128, r // 128
+    assert (sl[:32] == sr[:32]).all() and (sl[32] == sr[32]) == (last == "same")
+    s = lane_rmq.build(x, device=cuda)
+    planes = (s.xs, s.suff_val, s.suff_idx, s.pref_val, s.pref_idx)
+    args = [torch.from_numpy(q.astype(np.int32)).to(cuda) for q in (sl, sr, l - sl * 128, r - sr * 128)]
+    want = lane_partials_plain(*planes, *args)
+    for tile in (1, 8):
+        _same_bits(lane_partials(*planes, *args, tile=tile), want)
+    np.testing.assert_array_equal(want[1].cpu().numpy()[:32], ref.rmq_ref(x, l, r)[:32])

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.core import block_rmq as jax_block_rmq
+from repro.core import lane_rmq as jax_lane_rmq
 from repro.core import ref
 from repro.core import sparse_table as jax_sparse_table
 from repro.kernels import ops as jax_ops
@@ -24,13 +25,15 @@ from repro.kernels.block_min import block_min as jax_block_min
 from repro.kernels.fused_query import fused_query as jax_fused_query
 from repro.kernels.fused_query import fused_query_packed as jax_fused_query_packed
 from repro.kernels.fused_query import interior_tables as jax_interior_tables
+from repro.kernels.lane_query import lane_partials as jax_lane_partials
 from repro.kernels.ref import rmq_partials_ref as jax_rmq_partials_ref
 from repro.kernels.rmq_query import rmq_partials as jax_rmq_partials
-from repro_torch.core import block_rmq, sparse_table
+from repro_torch.core import block_rmq, lane_rmq, sparse_table
 from repro_torch.kernels import _build, ops, tuning
 from repro_torch.kernels.block_min import block_min
 from repro_torch.kernels.edge_batch import edge_batch
 from repro_torch.kernels.fused_query import fused_query, fused_query_packed, fused_query_packed_plain
+from repro_torch.kernels.lane_query import lane_partials
 from repro_torch.kernels.ref import block_min_ref, rmq_partials_ref
 from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
 from torch_parity_util import assert_same_answer, assert_same_structure, to_np
@@ -347,17 +350,32 @@ def test_fused_query_packed_checks_its_inputs():
 @pytest.mark.parametrize("b", [1, 4099])
 @pytest.mark.parametrize("bs", [128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
-@pytest.mark.parametrize("kernel", ["resident", "dma", "quantized", "rmq_partials"])
+@pytest.mark.parametrize(
+    "kernel", ["resident", "dma", "quantized", "rmq_partials", "packed32", "lane_partials"]
+)
 def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
-    """The kernels whose rows the CUDA body reads in 16-byte pieces, against
+    """The kernels whose rows the CUDA kernels read in 16-byte pieces, against
     the Pallas kernels in interpret mode on ``edge_batch`` (ranges cut at
     4j, 4j+3 and mid-piece; minima tied across rows, neighbouring lanes and
     pieces; zeros of both signs; maxval minima; bucket collisions): same
-    bits, -0.0 included. Where the minimum is not the padding value the
-    answer is the oracle's (a maxval range resolves to the leftmost masked
-    lane, as in the reference)."""
-    x, l, r = edge_batch(bs, dtype, b, finite=kernel == "quantized")
+    bits, -0.0 included. packed32 takes the batch's small-span values (its
+    key span must fit the word) and both fetches. Where the minimum is not
+    the padding value the answer is the oracle's (a maxval range resolves to
+    the leftmost masked lane, as in the reference)."""
+    x, l, r = edge_batch(
+        bs, dtype, b, finite=kernel == "quantized", small_span=kernel == "packed32"
+    )
     jl, jr = jnp.asarray(l), jnp.asarray(r)
+    if kernel == "lane_partials":  # 128-wide lane blocks, whatever bs
+        js = jax_lane_rmq.build(jnp.asarray(x))
+        ps = lane_rmq.build(x, device="cpu")
+        sl, sr = l // 128, r // 128
+        args = [a.astype(np.int32) for a in (sl, sr, l - sl * 128, r - sr * 128)]
+        jplanes = (js.xs, js.suff_val, js.suff_idx, js.pref_val, js.pref_idx)
+        want = jax_lane_partials(*jplanes, *map(jnp.asarray, args), tile=8, interpret=True)
+        planes = (ps.xs, ps.suff_val, ps.suff_idx, ps.pref_val, ps.pref_idx)
+        _assert_bits(want, lane_partials(*planes, *args))
+        return
     if kernel == "rmq_partials":
         xb = block_rmq.pad_blocks(torch.from_numpy(x), bs)
         bl, br = l // bs, r // bs
@@ -366,7 +384,17 @@ def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
         want = jax_rmq_partials(jnp.asarray(to_np(xb)), *map(jnp.asarray, args), tile=8, interpret=True)
         _assert_bits(want, rmq_partials(xb, *args, tile=8))
         return
-    if kernel == "quantized":
+    if kernel == "packed32":
+        js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout="packed32")
+        ps, spec = ops.build_packed(x, bs, layout="packed32", device="cpu")
+        assert spec == jspec
+        for fetch in ("resident", "dma"):
+            want = jax_fused_query_packed(
+                js.blocks, js.stw, jl, jr, spec=jspec, tile=8, fetch=fetch, interpret=True
+            )
+            got = fused_query_packed(ps.blocks, ps.stw, l, r, spec=spec, fetch=fetch)
+            _assert_bits(want, got)
+    elif kernel == "quantized":
         js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout="quantized")
         ps, spec = ops.build_packed(x, bs, layout="quantized", device="cpu")
         want = jax_fused_query_packed(

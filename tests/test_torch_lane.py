@@ -102,6 +102,39 @@ def test_lane_partials_matches_pallas(dtype, tile):
     _bits_equal(got, lane_partials_plain(*planes, *targs))
 
 
+@pytest.mark.parametrize("last", ["same", "straddle"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_lane_partials_same_block_warp_matches_pallas(dtype, last):
+    """B = 33: the first 32 queries each inside one lane block, the 33rd
+    inside one block or straddling. On these CPU tensors the wrapper runs
+    its plain version, so this holds the plain version to the Pallas kernel;
+    tests/test_torch_cuda.py runs the same shape through the CUDA kernel (its
+    ballot over same-block queries, a warp with one live lane)."""
+    rng = np.random.default_rng(33)
+    n = 1000
+    x = _data(rng, n, dtype)
+    js = jax_lane_rmq.build(jnp.asarray(x))
+    ps = lane_rmq.build(x, device="cpu")
+    blk = rng.integers(0, n // 128, 33)
+    a, c = rng.integers(0, 128, 33), rng.integers(0, 128, 33)
+    l, r = blk * 128 + np.minimum(a, c), blk * 128 + np.maximum(a, c)
+    l[0], r[0] = 128, 255  # a whole block
+    if last == "straddle":
+        l[32], r[32] = 5, n - 1
+    sl, sr = l // 128, r // 128
+    assert (sl[:32] == sr[:32]).all() and (sl[32] == sr[32]) == (last == "same")
+    args = [a.astype(np.int32) for a in (sl, sr, l - sl * 128, r - sr * 128)]
+    want = jax_lane_partials(
+        js.xs, js.suff_val, js.suff_idx, js.pref_val, js.pref_idx, *map(jnp.asarray, args),
+        tile=8, interpret=True,
+    )
+    planes = (ps.xs, ps.suff_val, ps.suff_idx, ps.pref_val, ps.pref_idx)
+    got = lane_partials(*planes, *args)
+    _bits_equal(want, got)
+    np.testing.assert_array_equal(to_np(got[0])[:32], x[ref.rmq_ref(x, l, r)][:32])
+    _bits_equal(got, lane_partials_plain(*planes, *map(torch.from_numpy, args)))
+
+
 def test_lane_partials_checks_its_inputs():
     ps = lane_rmq.build(np.arange(300, dtype=np.float32), device="cpu")
     planes = (ps.xs, ps.suff_val, ps.suff_idx, ps.pref_val, ps.pref_idx)

@@ -1,6 +1,6 @@
 """Time the query kernels of one checkout's repro_torch on the card, warm and cold.
 
-    python3 tools/kernel_ab.py [--src DIR] [--label NAME]
+    python3 tools/kernel_ab.py [--src DIR] [--label NAME] [--lane-queries Q]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``)
 and the timing helpers of this checkout's ``chip_smoke.py``, so two trees
@@ -15,17 +15,33 @@ same card, one after another:
         python3 tools/kernel_ab.py --label $t --src $src
     done
 
-Rows, float32, one batch of B = 4096 queries with lengths uniform in
-[1, 8192] (``chip_smoke._queries``): ``fused_query`` resident and dma at
-n = 2^20 and n = 2^26, quantized ``fused_query_packed`` and
-``rmq_partials`` at n = 2^26; ``fused_query`` dma at n = 2^26 also for one
-query (B = 1) and at tiles 4, 16 and 32 (the rows above: 8). For each,
-``chip_smoke.kernel_times``: ``ms``
+Rows, one batch of B = 4096 queries with lengths uniform in [1, 8192]
+(``chip_smoke._queries``) unless named otherwise, tile 8 unless named:
+- float32: ``fused_query`` resident and dma at n = 2^20 and n = 2^26,
+  quantized ``fused_query_packed``, ``rmq_partials`` and ``lane_partials``
+  at n = 2^26; ``fused_query`` dma at n = 2^26 also for one query (B = 1)
+  and at tiles 4, 16 and 32; ``lane_partials`` also for lengths uniform in
+  [1, 128] (about half inside one lane block), for one query, at tiles 1
+  and 4, and for a batch whose every query lies inside one lane block
+  (blocks uniform, both ends uniform in the block) at tiles 8 and 1;
+- packed32 ``fused_query_packed``: resident at n = 2^20 (int32 in
+  [-24, 24], key span 49), dma on the Euler-tour depths of
+  ``chip_smoke.euler_depths`` (n = 2^26 - 3), each also for one query.
+
+For each, ``chip_smoke.kernel_times``: ``ms``
 (device time, the batch launched again and again, so L2 is warm),
 ``cold_ms`` (L2 flushed before every launch) and ``call_ms`` (one wrapper
-call, host work included). Then the host cost of the parts of one
-``fused_query`` dma call at n = 2^26, in microseconds from
-``time.perf_counter_ns``. Prints the card line and one JSON line.
+call, host work included); the ``lane_partials`` rows also say whether the
+kernel equals its plain version bit for bit (``equal``). Then the host cost
+of the parts of one ``fused_query`` dma call at n = 2^26, in microseconds
+from ``time.perf_counter_ns``. Prints the card line and one JSON line,
+which also holds ``-Xptxas -v``'s spill and register lines for
+``lane_partials.cu`` when this run built the kernels.
+
+``--lane-queries Q`` builds the kernels with ``-DREPRO_LANE_QUERIES=Q``, so
+``csrc/lane_partials.cu`` gives a warp Q queries instead of its default 4
+(into a build directory of its own: the flags are part of the build key),
+to time that choice with the same rows.
 """
 
 from __future__ import annotations
@@ -120,6 +136,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory holding repro_torch")
     ap.add_argument("--label", default="change")
+    ap.add_argument("--lane-queries", type=int, choices=(1, 2, 4, 8), default=None,
+                    help="queries per warp of lane_partials (default: the source's)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -130,13 +148,23 @@ def main(argv=None) -> int:
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from repro_torch.core import lane_rmq
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fused_query import fused_query, fused_query_packed
+    from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
     from repro_torch.kernels.rmq_query import rmq_partials
 
     dev = torch.device("cuda")
     card = cs._card_line()
+    if args.lane_queries is not None:
+        _build._FLAGS = (*_build._FLAGS, f"-DREPRO_LANE_QUERIES={args.lane_queries}")
     lib = _build.library()
+    log = _build.build_log or ""
+    lane_ptxas = [
+        line.strip()
+        for line in log.split("--- lane_partials.cu", 1)[-1].split("\n--- ", 1)[0].splitlines()
+        if "registers" in line or "spill" in line
+    ] if "--- lane_partials.cu" in log else None
     flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     rows = {}
     for n, seed in ((cs.N_RESIDENT, 1), (cs.N_MAIN, 2)):
@@ -190,8 +218,58 @@ def main(argv=None) -> int:
             "QuantizedCells",
             flush,
         )
+        del q
+        lanes = lane_rmq.build(x, device=dev)
+        planes = (lanes.xs, lanes.suff_val, lanes.suff_idx, lanes.pref_val, lanes.pref_idx)
+        short = [torch.from_numpy(a).to(dev) for a in cs._queries(np.random.default_rng(20), n, 4096, 128)]
+        brng = np.random.default_rng(30)
+        blk = brng.integers(0, n // 128, 4096)
+        lo, hi = brng.integers(0, 128, 4096), brng.integers(0, 128, 4096)
+        inside = [
+            torch.from_numpy((blk * 128 + e).astype(np.int32)).to(dev)
+            for e in (np.minimum(lo, hi), np.maximum(lo, hi))
+        ]
+        for tag, (lq, rq), tile in (
+            ("", (lt, rt), 8),
+            (" lengths<=128", short, 8),
+            (" B=1", (lt[:1], rt[:1]), 8),
+            (" tile=1", (lt, rt), 1),
+            (" tile=4", (lt, rt), 4),
+            (" same-block", inside, 8),
+            (" same-block tile=1", inside, 1),
+        ):
+            largs = (*planes, lq // 128, rq // 128, lq % 128, rq % 128)
+            row = cs.kernel_times(
+                torch, lambda: lane_partials(*largs, tile=tile), "lane_partials_kernel", flush
+            )
+            got, want = lane_partials(*largs, tile=tile), lane_partials_plain(*largs)
+            row["equal"] = all(
+                torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)
+            )
+            rows[f"lane_partials n=2^26{tag}"] = row
+        del lanes, planes
+    # packed32: resident at n = 2^20 (int32 in [-24, 24], key span 49), dma
+    # on the Euler-tour depths (n = 2^26 - 3); each also for one query.
+    for x, fetch, tag in (
+        (np.random.default_rng(3).integers(-24, 25, cs.N_RESIDENT).astype(np.int32), "resident", "n=2^20"),
+        (cs.euler_depths(cs.EULER_HEIGHT), "dma", "Euler n=2^26-3"),
+    ):
+        l, r = cs._queries(np.random.default_rng(13), x.size, 4096)
+        lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
+        p, spec = ops.build_packed(x, 128, layout="packed32", device=dev)
+        for b, btag in ((4096, ""), (1, " B=1")):
+            rows[f"fused_query_packed[packed32,{fetch}] {tag}{btag}"] = cs.kernel_times(
+                torch,
+                lambda: fused_query_packed(p.blocks, p.stw, lt[:b], rt[:b], spec=spec, fetch=fetch),
+                "fused_query_packed32_kernel",
+                flush,
+            )
+        del p
     print(card)
-    print(json.dumps({"label": args.label, "src": args.src, "card": card, "rows": rows, "host_us": parts}))
+    print(json.dumps({
+        "label": args.label, "src": args.src, "lane_queries": args.lane_queries, "card": card,
+        "rows": rows, "host_us": parts, "lane_ptxas": lane_ptxas,
+    }))
     return 0
 
 
