@@ -33,19 +33,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``lane_partials`` also on a batch whose queries all lie inside single
    lane blocks;
 5. the served paths. Through ``repro_torch.launch.serve.main``: hybrid and
-   fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 (where the
-   resident fetch serves), hybrid async at n = 2^26 with small and medium
+   fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 and at
+   ``RESIDENT_NB_CEILING`` blocks (the largest n whose "auto" fetch is
+   resident: 2048 values), hybrid async at n = 2^26 with small and medium
    ranges; packed_hybrid --packed quantized at n = 2^26 oneshot and async;
    packed_hybrid at n = 2^26 with the layout left to the data (float32:
    packed64, which has no kernel). Through the library: packed_hybrid
-   packed32 on the Euler array and at n = 2^20 (resident fetch), and
+   packed32 on the Euler array, at n = 2^20 and at the resident ceiling, and
    ``ops.query(fused=False)`` and ``ops.lane_query`` at n = 2^26. Every
    answer is checked against the numpy oracle; the launch counts are set to
    0 just before each run and read just after, and each run must have
    launched its kernels (the packed64 run: none of them);
-6. the traced async hybrid run (the device's idle share), one JSON
-   ``kernels`` line, the wall time, the card line again, and the last line
-   ``{"ok": true, "device": {...}}``.
+6. the traced async hybrid run (the device's idle share);
+7. the measured crossover and the autotuner, with the calibration cache in
+   a temporary file of this run (``RMQ_TORCH_CALIB_CACHE``; every earlier
+   phase found it empty, so served at the sqrt(n) threshold and the default
+   kernel geometry): ``hybrid.calibrate`` at n = 2^26 and 2^20, unpacked,
+   quantized and packed32, each crossover beside sqrt(n); ``tuning.sweep``
+   at n = 2^26 and 2^20 (B = 4096), twice, every candidate's time and
+   whether the two runs agree on the winner; ``--engine hybrid --calibrate
+   --tune`` async at n = 2^26 with small ranges (measures and stores) and
+   medium ranges (must measure nothing: the cache hit); the baselines:
+   ``--engine lca`` oneshot (every query of a batch checked) and async at
+   n = 2^20, and ``exhaustive`` through the registry at n = 2^20 on 4096
+   queries and on an all-equal array (leftmost ties on CUDA), each checked
+   against the oracle and launching no kernel;
+8. one JSON ``kernels`` line, the wall time, the card line again, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
 ``torch.profiler`` reports, warm (``ms``: the same batch launched again and
@@ -62,15 +76,18 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
-N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: the largest "auto" resident size
+N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: both fetches timed and served here
 EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
 
 
@@ -283,6 +300,17 @@ def _device_busy_share(torch, np, dev) -> None:
 
 
 def main() -> int:
+    """Runs every phase with the calibration cache in a temporary file of
+    this run, so that no cache on the machine feeds it."""
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    os.environ["RMQ_TORCH_CALIB_CACHE"] = str(Path(cache_dir) / "calibration.json")
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _main() -> int:
     t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
@@ -293,8 +321,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 1
 
-    from repro_torch.core import hybrid, lane_rmq, ref, registry
-    from repro_torch.kernels import _build, ops
+    from repro_torch.core import calib_cache, hybrid, lane_rmq, ref, registry
+    from repro_torch.kernels import _build, ops, tuning
     from repro_torch.kernels.block_min import block_min, block_min_plain
     from repro_torch.kernels.edge_batch import edge_batch
     from repro_torch.kernels.fused_query import (
@@ -659,14 +687,17 @@ def main() -> int:
         rmq_partials.launches = 0
         lane_partials.launches = 0
 
-    def drive(label, fn, must=(), none=False):
+    def drive(label, fn, must=(), none=False, some=()):
         """Run one served path with the counts at 0; ``must`` kernels have to
-        launch in it, and with ``none`` no kernel may."""
+        launch in it, at least one of ``some``, and with ``none`` no kernel
+        may."""
         reset_counts()
         fn()
         run = {k: get() for k, get in counters.items()}
         for k in must:
             _require(run[k] > 0, f"{k} was not launched by {label}")
+        if some:
+            _require(any(run[k] > 0 for k in some), f"none of {some} was launched by {label}")
         if none:
             _require(not any(run.values()), f"{label} launched a kernel: {run}")
         for k, v in run.items():
@@ -683,7 +714,13 @@ def main() -> int:
           (*unpacked, "fused_query[dma]"))
     drive("fused128 oneshot 2^26", cli([*oneshot, "--engine", "fused128", "--n", str(N_MAIN)]),
           (*unpacked, "fused_query[dma]"))
+    # "auto" picks the fetch by the block count: resident up to the ceiling.
+    n_auto_resident = tuning.RESIDENT_NB_CEILING * 128
+    fq_fetch = lambda n, bs=128: f"fused_query[{tuning.resolve_fetch('auto', -(-n // bs))}]"
+    p32_fetch = lambda n: f"fused_query_packed[packed32,{tuning.resolve_fetch('auto', -(-n // 128))}]"
     drive("hybrid oneshot 2^20", cli([*oneshot, "--engine", "hybrid", "--n", str(N_RESIDENT)]),
+          (*unpacked, fq_fetch(N_RESIDENT)))
+    drive(f"hybrid oneshot {n_auto_resident}", cli([*oneshot, "--engine", "hybrid", "--n", str(n_auto_resident)]),
           (*unpacked, "fused_query[resident]"))
     torch.cuda.reset_peak_memory_stats()
     for dist in ("small", "medium"):
@@ -744,6 +781,9 @@ def main() -> int:
     print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (packed_hybrid packed32, n={euler.size})")
     small_span = np.random.default_rng(2).integers(-24, 25, N_RESIDENT).astype(np.int32)
     drive("packed_hybrid packed32 oneshot 2^20", packed32_batches(small_span, "span 49"),
+          (p32_fetch(N_RESIDENT),))
+    drive(f"packed_hybrid packed32 oneshot {n_auto_resident}",
+          packed32_batches(small_span[:n_auto_resident], "span 49"),
           ("fused_query_packed[packed32,resident]",))
 
     def entry_point_batches():
@@ -768,7 +808,106 @@ def main() -> int:
         _require(c > 0, f"{name} was not launched on the served paths")
     _device_busy_share(torch, np, dev)
 
-    # --- phase 6: the kernels line and the result ---------------------------
+    # --- phase 7: crossover, autotuner, cached serve, baselines -------------
+    print(f"[calib] cache file {calib_cache.default_path()} (this run's own; empty until now)")
+    for n in (N_MAIN, N_RESIDENT):
+        for layout in (None, "quantized", "packed32"):
+            if layout is None:
+                must = ("block_min", fq_fetch(n))
+            elif layout == "quantized":
+                must = ("fused_query_packed[quantized]",)
+            else:
+                must = (p32_fetch(n),)
+            box = {}
+
+            def run(n=n, layout=layout, box=box):
+                t0 = time.perf_counter()
+                box["thr"] = hybrid.calibrate(n, layout=layout, device=dev)
+                box["s"] = time.perf_counter() - t0
+
+            name = layout or "unpacked"
+            drive(f"calibrate {name} n={n}", run, must)
+            print(
+                f"[calib] {name} n={n}: crossover {box['thr']} (sqrt(n) = "
+                f"{round(n ** 0.5)}; lengths swept {np.unique(np.geomspace(1, n, 8).astype(np.int64)).tolist()}) "
+                f"in {box['s']:.2f} s"
+            )
+
+    for n in (N_MAIN, N_RESIDENT):
+        winners = []
+        for rep in (1, 2):
+            box = {}
+
+            def run(n=n, box=box):
+                t0 = time.perf_counter()
+                box["res"] = tuning.sweep(n, 4096, device=dev)
+                box["s"] = time.perf_counter() - t0
+
+            cands = tuning.candidate_configs(n)
+            drive(f"tuning.sweep n={n} run {rep}", run,
+                  some=tuple({f"fused_query[{c.fetch}]" for c in cands}), must=("block_min",))
+            res = box["res"]
+            _require(len(res) == len(cands), f"sweep n={n} timed {len(res)} of {len(cands)} candidates")
+            for cfg, sec in res:
+                print(f"[tune] n={n} run {rep}: tile={cfg.tile} fetch={cfg.fetch} bs={cfg.block_size}: {sec * 1e6:.1f} us per call")
+            best = min(res, key=lambda cv: cv[1])[0]
+            winners.append(best)
+            print(f"[tune] n={n} run {rep}: winner tile={best.tile} fetch={best.fetch} bs={best.block_size} ({box['s']:.2f} s)")
+        print(f"[tune] n={n}: the two runs {'agree' if winners[0] == winners[1] else 'DISAGREE'} on the winner")
+
+    measured = [0]
+    real_measure = hybrid._measure
+
+    def counted(*a, **k):
+        measured[0] += 1
+        return real_measure(*a, **k)
+
+    hybrid._measure = counted
+    try:
+        cal = ["--engine", "hybrid", "--calibrate", "--tune", "--n", str(N_MAIN)]
+        for dist in ("small", "medium"):
+            measured[0] = 0
+            drive(f"hybrid --calibrate --tune async {dist} 2^26", cli([*asy, *cal, "--dist", dist]), ("block_min",),
+                  some=("fused_query[resident]", "fused_query[dma]") if dist == "small" else ())
+            print(f"[calib] hybrid --calibrate --tune async {dist}: {measured[0]} measurements")
+            if dist == "small":
+                _require(measured[0] > 0, "the first calibrated and tuned serve measured nothing")
+            else:
+                _require(measured[0] == 0, f"the second calibrated and tuned serve measured {measured[0]} times")
+    finally:
+        hybrid._measure = real_measure
+    print(f"[calib] cache entries {json.dumps(json.loads(Path(calib_cache.default_path()).read_text())['entries'])}")
+
+    for mode in (oneshot, asy):
+        argv = [*mode, "--engine", "lca", "--n", str(N_RESIDENT)]
+        if mode is oneshot:  # every query of the last batch checked (async: every request)
+            argv += ["--verify", "4096"]
+        drive(f"lca {mode[1]} 2^20", cli(argv), none=True)
+
+    def exhaustive_batches():
+        spec = registry.get("exhaustive")
+        qrng = np.random.default_rng(6)
+        x = qrng.random(N_RESIDENT, dtype=np.float32)
+        l, r = make_queries(qrng, N_RESIDENT, 4096, "medium")
+        zeros = np.zeros(N_RESIDENT, np.float32)
+        for name, xs in (("random", x), ("all-equal", zeros)):
+            t0 = time.perf_counter()
+            idx, val = spec.query(spec.build(xs, device=dev), l, r)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            gold = ref.rmq_ref(xs, l, r)
+            _require(
+                idx.dtype == torch.int32 and bool((idx.cpu().numpy() == gold).all())
+                and bool((val.cpu().numpy() == xs[gold]).all()),
+                f"exhaustive {name} != oracle",
+            )
+            if name == "all-equal":
+                _require(bool((idx.cpu().numpy() == l).all()), "exhaustive all-equal: not the leftmost")
+            print(f"[exhaustive] {name} n={N_RESIDENT}: 4096 medium ranges in {t * 1e3:.1f} ms, all equal to the oracle")
+
+    drive("exhaustive registry 2^20", exhaustive_batches, none=True)
+
+    # --- phase 8: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"
     source = {
         "block_min": ("src/repro_torch/csrc/block_min.cu", "src/repro/kernels/block_min.py:47"),

@@ -7,20 +7,41 @@
   * ``packing``      — order-isomorphic (value, index) words (packed64,
     packed32, quantized) for the packed halves of the structures.
   * ``lane_rmq``     — the O(1) gather engine over 128-wide lane blocks.
+  * ``lca``          — the paper's GPU baseline: RMQ as LCA over the
+    Cartesian tree's Euler tour (tree built on the host).
+  * ``exhaustive``   — the brute-force baseline and second oracle.
   * ``hybrid``       — range-adaptive dispatch: short ranges to the blocked
-    path (the fused CUDA kernel on the card), long ranges to the table.
+    path (the fused CUDA kernel on the card), long ranges to the table;
+    ``hybrid.calibrate`` measures the crossover.
+  * ``calib_cache``  — the persistent cache of measured thresholds and tuned
+    kernel configs.
   * ``build``        — the staged BuildPlan pipeline every build lowers
     through.
   * ``registry``     — one ``(build, query) -> (idx, val)`` spec per engine.
 """
 
-from . import block_rmq, build, hybrid, lane_rmq, packing, ref, registry, sparse_table
+from . import (
+    block_rmq,
+    build,
+    calib_cache,
+    exhaustive,
+    hybrid,
+    lane_rmq,
+    lca,
+    packing,
+    ref,
+    registry,
+    sparse_table,
+)
 
 __all__ = [
     "block_rmq",
     "build",
+    "calib_cache",
+    "exhaustive",
     "hybrid",
     "lane_rmq",
+    "lca",
     "packing",
     "ref",
     "registry",

@@ -25,7 +25,7 @@ import torch
 from repro_torch._device import resolve
 from repro_torch.obs import trace as obs_trace
 
-from . import block_rmq, lane_rmq, packing, sparse_table
+from . import block_rmq, calib_cache, lane_rmq, lca, packing, sparse_table
 
 __all__ = [
     "BuildPlan",
@@ -68,21 +68,47 @@ class BuildPlan(NamedTuple):
     meta: Dict[str, Any]  # resolved device / threshold / block_size / kernel config
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+def _resolve_threshold(
+    threshold,
+    n: int,
+    block_size: int,
+    *,
+    backend: str,
+    calibrate_kw: Optional[dict] = None,
+    layout: Optional[str] = None,
+) -> int:
+    """The routing-threshold policy of the hybrid planner.
 
-
-def _resolve_threshold(threshold, n: int) -> int:
-    """The routing-threshold policy: ``None`` -> sqrt(n); an int pins it."""
-    from . import hybrid
+    ``None`` -> deterministic sqrt(n) (never touches machine state);
+    ``"cached"`` -> persistent cache with the sqrt(n) fallback, never
+    measuring; ``"calibrated"`` -> measure via ``hybrid.calibrate`` on a
+    miss and persist; an int pins it. ``backend`` (the plan's device type)
+    keys the cache; ``layout`` (cache key v3) scopes the measurement to a
+    packed word layout.
+    """
+    from . import hybrid  # deferred: hybrid lowers its build through here
 
     if threshold is None:
         return max(1, int(round(n**hybrid.DEFAULT_THRESHOLD_FRAC)))
     if isinstance(threshold, (int, np.integer)) and not isinstance(threshold, bool):
         return int(threshold)
-    if threshold in ("cached", "calibrated"):
-        raise _not_ported(f"threshold={threshold!r} (the calibration cache)", "queue 1 step 4")
-    raise ValueError(f"threshold must be an int or None; got {threshold!r}")
+    if threshold == "cached":
+        key = calib_cache.cache_key(n, block_size, backend=backend, layout=layout)
+        hit = calib_cache.load(key)
+        if hit is not None:
+            return hit
+        return max(1, int(round(n**hybrid.DEFAULT_THRESHOLD_FRAC)))
+    if threshold == "calibrated":
+        return calib_cache.get_threshold(
+            n,
+            block_size,
+            backend=backend,
+            layout=layout,
+            **(calibrate_kw or {}),
+        )
+    raise ValueError(
+        f"threshold must be an int, None, 'cached' or 'calibrated'; got {threshold!r}"
+    )
 
 
 def _norm_packed(packed) -> Optional[str]:
@@ -108,15 +134,22 @@ def _norm_packed(packed) -> Optional[str]:
     return packed
 
 
-def _resolve_kernel_config(kernel_config, block_size: Optional[int] = None):
-    """The kernel launch-geometry policy: ``None`` -> the default config; a
-    ``KernelConfig`` (or compatible tuple) pins it."""
+def _resolve_kernel_config(kernel_config, n: int, block_size: Optional[int], device):
+    """The kernel launch-geometry policy (mirrors ``_resolve_threshold``).
+
+    ``None`` -> the deterministic default config (never touches machine
+    state); ``"cached"`` -> the persistent cache, default fallback, never
+    measuring; ``"tuned"`` -> the cache, sweeping via ``tuning.autotune`` on
+    ``device`` only on a miss; a ``tuning.KernelConfig`` (or compatible
+    tuple) pins it. ``block_size`` pins that knob when the caller's
+    structure already committed to one.
+    """
     from repro_torch.kernels import tuning
 
-    if kernel_config is None:
-        return tuning.default_config(block_size if block_size is not None else 128)
-    if isinstance(kernel_config, str):
-        raise _not_ported(f"kernel_config={kernel_config!r} (the autotuner)", "queue 1 step 8")
+    if kernel_config is None or isinstance(kernel_config, str):
+        return tuning.get_config(
+            n, policy=kernel_config, block_size=block_size, backend=device.type, device=device
+        )
     return tuning.KernelConfig(*kernel_config)
 
 
@@ -275,10 +308,20 @@ def _plan_lane(n, *, device):
     return _single_host_plan("lane", n, lambda x: lane_rmq.build(x, device=device), device)
 
 
+@_planner("lca")
+def _plan_lca(n, *, device):
+    return _single_host_plan("lca", n, lambda x: lca.build(x, device=device), device, with_x=True)
+
+
+@_planner("exhaustive")
+def _plan_exhaustive(n, *, device):
+    return _single_host_plan("exhaustive", n, lambda x: x, device, with_x=True)
+
+
 @_planner("fused")
 def _plan_fused(n, *, device, block_size=None, kernel_config=None, packed=None):
     layout = _norm_packed(packed)
-    cfg = _resolve_kernel_config(kernel_config, block_size)
+    cfg = _resolve_kernel_config(kernel_config, n, block_size, device)
     # An explicit block_size pins the config's, so the two never disagree;
     # the config's own layout rides along unless ``packed=`` pins one.
     bs = block_size if block_size is not None else cfg.block_size
@@ -322,10 +365,17 @@ def _plan_hybrid(
     if use_kernels is None:
         # The reference asks for a TPU backend; the port for a CUDA structure.
         use_kernels = device.type == "cuda"
-    thr = _resolve_threshold(threshold, n)
+    thr = _resolve_threshold(
+        threshold,
+        n,
+        block_size,
+        backend=device.type,
+        calibrate_kw={"use_kernels": use_kernels, "device": device},
+        layout=pack_layout,
+    )
     # The kernel geometry, within this build's block size. Resolved only
     # when the short path runs the kernels.
-    cfg = _resolve_kernel_config(kernel_config, block_size) if use_kernels else None
+    cfg = _resolve_kernel_config(kernel_config, n, block_size, device) if use_kernels else None
     layout = ShardLayout(n=n, n_pad=n, num_shards=1, shard_len=n)
 
     def local(state):

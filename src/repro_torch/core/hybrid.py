@@ -9,28 +9,32 @@ two result sets are scattered back into batch order. Results equal
 ``block_rmq.query`` bit for bit. With ``packed=`` both tiers hold packed
 (value, index) words (``core.packing``); the short path then runs the
 ``fused_query_packed`` kernel for packed32 and quantized, and the plain
-packed query for packed64, which has no kernel. Port of
-``repro/core/hybrid.py`` (``calibrate`` is a later slice, see ROADMAP.md).
+packed query for packed64, which has no kernel. ``calibrate`` measures the
+crossover of the two paths on the structure's device (the ``"calibrated"``
+threshold policy, cached by ``core.calib_cache``). Port of
+``repro/core/hybrid.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._device import as_index, to_numpy
+from repro_torch._device import as_index, resolve, to_numpy
 from repro_torch.obs import trace as obs_trace
 
-from . import block_rmq, sparse_table
+from . import block_rmq, packing, sparse_table
 
 __all__ = [
     "HybridRMQ",
     "assemble",
     "build",
+    "calibrate",
     "query",
     "dispatch_by_length",
     "record_splits",
@@ -61,7 +65,7 @@ def build(
     x,
     block_size: int = 128,
     *,
-    threshold: int | None = None,
+    threshold: int | str | None = None,
     use_kernels: bool | None = None,
     kernel_config=None,
     packed=None,
@@ -69,10 +73,15 @@ def build(
 ) -> HybridRMQ:
     """Build both constituent engines on ``device`` (via the ``core.build`` plan).
 
-    ``threshold=None`` -> the sqrt(n) default; an int pins it.
+    ``threshold=None`` -> the sqrt(n) default (never touches machine state);
+    ``"cached"`` -> the persistent JSON cache (``calib_cache``) with the
+    sqrt(n) fallback, never measuring; ``"calibrated"`` -> the cache,
+    measuring via ``calibrate`` only on a miss; an int pins it.
     ``use_kernels=None`` -> the kernels exactly when the structure lives on a
-    CUDA device. ``kernel_config`` is None (the default geometry) or a
-    ``kernels.tuning.KernelConfig``. ``packed`` opts both tiers into packed
+    CUDA device. ``kernel_config`` is the launch-geometry policy of the
+    kernel short path (None | "cached" | "tuned" | a
+    ``kernels.tuning.KernelConfig``), with the same cache lifecycle as
+    thresholds. ``packed`` opts both tiers into packed
     words: None/False -> unpacked, True/"auto" -> packed32 when the data's
     key span fits, else packed64, or an explicit layout name.
     """
@@ -226,3 +235,99 @@ def query(s: HybridRMQ, l, r) -> Tuple[torch.Tensor, torch.Tensor]:
     Bit-identical to ``block_rmq.query`` on the same batch.
     """
     return dispatch_by_length(l, r, s.threshold, s.short_fn, s.long_fn, s.x.dtype, s.x.device)
+
+
+def _measure(kind: str, fn, lj, rj, repeats: int) -> float:
+    """Median wall seconds of one call of a path (after one warmup call).
+
+    Each call ends in ``torch.cuda.synchronize()`` when the bounds live on
+    the card, so the time is the call's, launch to answer. ``kind`` names
+    the path ("short" / "long", or a kernel config) purely so tests can swap
+    this out for a deterministic fake and pin the control flow of
+    ``calibrate`` and of the autotuner.
+    """
+    del kind
+    sync = torch.cuda.synchronize if lj.device.type == "cuda" else (lambda: None)
+    fn(lj, rj)  # warmup (and the first launch's kernel build)
+    sync()
+    ts = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn(lj, rj)
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def _packed32_proxy(rng, n: int) -> np.ndarray:
+    """The int32 array packed32 calibration times: the reference's values
+    in [-1000, 1000) where their span fits the words beside ``n``'s index
+    bits (n <= 2^20), else the widest span that does. The reference keeps
+    [-1000, 1000) at every n, so its packed32 calibration raises above
+    2^20 (ROADMAP.md §3)."""
+    span = min(2000, np.iinfo(np.int32).max >> packing.idx_bits_for(n))
+    return rng.integers(-(span // 2), span - span // 2, size=n).astype(np.int32)
+
+
+def calibrate(
+    n: int,
+    batch: int = 4096,
+    *,
+    block_size: int = 128,
+    use_kernels: bool | None = None,
+    seed: int = 0,
+    repeats: int = 3,
+    mesh=None,
+    axis_names=None,
+    mode: str = "shard_structure",
+    layout: str | None = None,
+    device=None,
+) -> int:
+    """Time both constituent paths across range lengths; return the crossover.
+
+    Sweeps log-spaced range lengths, measures the per-call median of each
+    path on a ``batch``-sized query load on ``device``, and returns the
+    largest swept length at which the short (blocked) path still wins, the
+    value to pass as ``threshold`` given the ``len <= threshold -> short``
+    routing: ``n`` when the short path wins everywhere, ``0`` (route
+    everything long) when the long path wins even at length 1.
+
+    ``layout`` measures the packed constituents (cache key v3). packed32's
+    key-range precondition is data-dependent, so that measurement runs over
+    a narrow-range int32 proxy array (``_packed32_proxy``); the other
+    layouts keep the float proxy. ``mesh``/``axis_names``/``mode`` name the
+    sharded measurement, which comes with the multi-device engines.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "calibrate(mesh=...) measures the sharded constituents, which are not "
+            "ported yet (ROADMAP.md, queue 1 step 11)"
+        )
+    del axis_names, mode
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    if layout == "packed32":
+        x = _packed32_proxy(rng, n)
+    else:
+        x = rng.random(n, dtype=np.float32)
+    s = build(x, block_size, use_kernels=use_kernels, packed=layout, device=dev)
+
+    lengths = np.unique(np.geomspace(1, n, num=8).astype(np.int64).clip(1, n))
+    crossover = None
+    prev_length = 0
+    for length in lengths:
+        lo = rng.integers(0, max(n - length + 1, 1), batch)
+        lj = as_index(lo, dev)
+        rj = as_index(np.minimum(lo + length - 1, n - 1), dev)
+
+        if _measure("long", s.long_fn, lj, rj, repeats) < _measure(
+            "short", s.short_fn, lj, rj, repeats
+        ):
+            # The long path wins at `length`; routing is `len <= threshold ->
+            # short`, so the threshold is the last length where short won.
+            crossover = int(prev_length)
+            break
+        prev_length = int(length)
+    if crossover is None:
+        crossover = prev_length  # short path won at every swept length (= n)
+    return crossover  # 0 => route everything long (long won even at len 1)

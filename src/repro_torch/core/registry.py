@@ -9,16 +9,17 @@ BuildPlan pipeline; ``plan_for_serving``/``build_for_serving`` resolve the
 plan from the declared serving capabilities (``serve_plan``), validating
 kwargs at one enforcement point. Engines with a ``packed`` build kwarg build
 packed word structures on request; their state is then a ``(structure,
-PackSpec)`` pair. Port of ``repro/core/registry.py`` for the single-device
-engines (the serve plans take the deterministic policies: the cached
-threshold and kernel-config policies are a later slice).
+PackSpec)`` pair. The hybrid serve plans read the routing threshold and
+the kernel geometry from the calibration cache (``"cached"``; the serve
+CLI's ``--calibrate``/``--tune`` measure on a miss). Port of
+``repro/core/registry.py`` for the single-device engines.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
-from . import block_rmq, build as build_mod, hybrid, lane_rmq, packing, sparse_table
+from . import block_rmq, build as build_mod, exhaustive, hybrid, lane_rmq, lca, packing, sparse_table
 
 __all__ = [
     "EngineSpec",
@@ -75,12 +76,27 @@ def packed_spec(state):
     return None
 
 
-def _sparse_table_query(state, l, r):
-    table, x = state
-    if _is_packed_state(table):
-        return sparse_table.query_packed(*table, l, r)
-    idx = sparse_table.query(table, l, r)
-    return idx, x[idx]
+def _with_values(planner: str, query_fn, packed_query_fn=None, **spec_kw) -> EngineSpec:
+    """Adapt an index-only engine to the uniform (idx, val) contract.
+
+    The planner's finalize stage already pairs the built state with ``x``
+    (``with_x``); the query wrapper gathers values from it. When the planner
+    has a packed variant (``packed=`` kwarg), its state is
+    ``((structure, PackSpec), x)`` and ``packed_query_fn`` serves it:
+    packed queries return (idx, val) natively, so no gather is needed.
+    """
+
+    def build(x, device=None):
+        return build_mod.build(planner, x, device=device)
+
+    def query(state, l, r):
+        s, x = state
+        if packed_query_fn is not None and _is_packed_state(s):
+            return packed_query_fn(*s, l, r)
+        idx = query_fn(s, l, r)
+        return idx, x[idx]
+
+    return EngineSpec(build, query, **spec_kw)
 
 
 def _block_query(state, l, r):
@@ -124,9 +140,10 @@ def _kernels_engine(block_size: int, kernel_config=None, doc: str = "") -> Engin
 
 
 ENGINES: dict = {
-    "sparse_table": EngineSpec(
-        lambda x, device=None: build_mod.build("sparse_table", x, device=device),
-        _sparse_table_query,
+    "sparse_table": _with_values(
+        "sparse_table",
+        sparse_table.query,
+        packed_query_fn=sparse_table.query_packed,
         build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("sparse_table"),
         doc="O(1) doubling-table lookups",
@@ -151,6 +168,19 @@ ENGINES: dict = {
         serve_plan=_simple_serve_plan("lane"),
         doc="lane-RMQ: O(1) gathers over 128-wide lane blocks",
     ),
+    "lca": _with_values(
+        "lca",
+        lca.query,
+        serve_plan=_simple_serve_plan("lca"),
+        doc="LCA/Euler-tour O(1) engine (host-built Cartesian tree)",
+    ),
+    # Test oracle, not a server: O(n) scan per query chunk.
+    "exhaustive": _with_values(
+        "exhaustive",
+        lambda x, l, r: exhaustive.rmq_exhaustive(x, l, r, query_chunk=64),
+        serveable=False,
+        doc="O(n)-per-query scan oracle",
+    ),
     "fused128": _kernels_engine(128),
     "fused128_dma": _kernels_engine(
         128,
@@ -162,7 +192,9 @@ ENGINES: dict = {
         lambda x, device=None: build_mod.build("hybrid", x, device=device, block_size=128),
         hybrid.query,
         build_kwargs=frozenset({"block_size", "threshold", "kernel_config", "packed"}),
-        serve_plan=_simple_serve_plan("hybrid", block_size=128),
+        serve_plan=_simple_serve_plan(
+            "hybrid", block_size=128, threshold="cached", kernel_config="cached"
+        ),
         doc="range-adaptive blocked/sparse-table crossover dispatcher",
     ),
     # The packed-word hybrid: both tiers carry (value, index) words; the
@@ -174,7 +206,9 @@ ENGINES: dict = {
         ),
         hybrid.query,
         build_kwargs=frozenset({"block_size", "threshold", "kernel_config", "packed"}),
-        serve_plan=_simple_serve_plan("hybrid", block_size=128, packed="auto"),
+        serve_plan=_simple_serve_plan(
+            "hybrid", block_size=128, threshold="cached", kernel_config="cached", packed="auto"
+        ),
         doc="hybrid over packed (value, index) word planes",
     ),
 }

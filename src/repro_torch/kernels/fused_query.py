@@ -37,7 +37,7 @@ from repro_torch.core.sparse_table import exact_log2
 
 from . import _build
 from .rmq_query import rmq_partials_plain
-from .tuning import DEFAULT_TILE, resolve_fetch
+from .tuning import DEFAULT_TILE, MAX_TILE, resolve_fetch
 
 __all__ = [
     "fused_query",
@@ -182,8 +182,8 @@ def fused_query(
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_query runs on cuda or cpu tensors, got {dev}")
-    if not 1 <= tile <= 32:
-        raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}] warps per thread block, got {tile}")
     _check_leaf("x_blocks", x_blocks, x_blocks.dtype, dev, 2)
     _build.check_pieces(x_blocks, "x_blocks", "fused_query")
     if fetch == "resident":
@@ -300,8 +300,8 @@ def fused_query_packed(
         return fused_query_packed_plain(blocks, stw, l, r, spec=spec, bmin_val=bmin_val)
     if dev.type != "cuda":
         raise ValueError(f"fused_query_packed runs on cuda or cpu tensors, got {dev}")
-    if not 1 <= tile <= 32:
-        raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}] warps per thread block, got {tile}")
     val_dtype = getattr(torch, spec.dtype)
     if val_dtype not in _DTYPES:
         raise TypeError(f"fused_query_packed takes float32 or int32 values, got {spec.dtype}")

@@ -21,7 +21,7 @@ from repro_torch.core.block_rmq import kernel_leftmost_min, maxval
 from repro_torch.core.lane_rmq import LANE
 
 from . import _build
-from .tuning import DEFAULT_TILE
+from .tuning import DEFAULT_TILE, MAX_TILE
 
 __all__ = ["lane_partials", "lane_partials_plain", "DEFAULT_TILE"]
 
@@ -74,8 +74,8 @@ def lane_partials(
         return lane_partials_plain(xs, *planes, *args)
     if dev.type != "cuda":
         raise ValueError(f"lane_partials runs on cuda or cpu tensors, got {dev}")
-    if not 1 <= tile <= 32:
-        raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}] warps per thread block, got {tile}")
     for name, t, dtype in zip(
         ("xs", "suff_val", "suff_idx", "pref_val", "pref_idx"),
         (xs, *planes),

@@ -20,7 +20,7 @@ from repro_torch._device import as_index
 from repro_torch.core.block_rmq import kernel_leftmost_min, maxval, signed_min
 
 from . import _build
-from .tuning import DEFAULT_TILE
+from .tuning import DEFAULT_TILE, MAX_TILE
 
 __all__ = ["rmq_partials", "rmq_partials_plain", "DEFAULT_TILE"]
 
@@ -74,8 +74,8 @@ def rmq_partials(x_blocks, bl, br, lstart, lend, rend, *, tile: int = DEFAULT_TI
     if not x_blocks.is_contiguous():
         raise ValueError("rmq_partials needs a contiguous x_blocks")
     _build.check_pieces(x_blocks, "x_blocks", "rmq_partials")
-    if not 1 <= tile <= 32:
-        raise ValueError(f"tile must be in [1, 32] warps per thread block, got {tile}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}] warps per thread block, got {tile}")
     nb, bs = x_blocks.shape
     args = [a.contiguous() for a in args]
     b = args[0].shape[0]

@@ -17,10 +17,15 @@ from the registry's capability metadata; builds lower through the staged
 BuildPlan pipeline, whose resolved threshold drives per-regime warmup in
 async mode. ``--packed`` serves packed (value, index) word structures
 (engines declaring a ``packed`` build kwarg, e.g. ``packed_hybrid``); the
-build line names the layout the data resolved to. Port of
-``repro/launch/serve.py`` for the single-device engines; the flags of later
-slices (--calibrate, --tune, --qshard, --mutate, --restore, --chaos,
---replicas) are not ported yet.
+build line names the layout the data resolved to. Engines declaring a
+``threshold`` build kwarg read their routing threshold from the calibration
+cache (``core.calib_cache``, ``RMQ_TORCH_CALIB_CACHE``), and ``--calibrate``
+measures it there on a miss; engines declaring ``kernel_config`` read their
+kernel geometry from it, and ``--tune`` sweeps on a miss. The build line
+names the resolved threshold and geometry, and the time resolving them took.
+Port of ``repro/launch/serve.py`` for the single-device engines; the flags
+of later slices (--qshard, --mutate, --restore, --chaos, --replicas) are
+not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
@@ -28,6 +33,8 @@ slices (--calibrate, --tune, --qshard, --mutate, --restore, --chaos,
       --engine hybrid --n 67108864 --clients 4 --requests 32 --req-batch 256
   PYTHONPATH=src python -m repro_torch.launch.serve --engine packed_hybrid \
       --packed quantized --n 67108864
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --engine hybrid --calibrate --tune --n 67108864
 """
 
 from __future__ import annotations
@@ -79,6 +86,20 @@ def _parser() -> argparse.ArgumentParser:
         "--packed (= 'auto') picks the tightest layout the data fits, or name "
         "one explicitly (engines declaring a 'packed' build kwarg)",
     )
+    ap.add_argument(
+        "--calibrate",
+        action="store_true",
+        help="routing threshold from the calibration cache, measuring once per "
+        "configuration (engines declaring a 'threshold' build kwarg)",
+    )
+    ap.add_argument(
+        "--tune",
+        action="store_true",
+        help="kernel launch geometry (tile, fetch, block size) from the "
+        "autotune cache, sweeping once per configuration (engines declaring "
+        "a 'kernel_config' build kwarg; without --tune, cached winners are "
+        "still loaded read-only)",
+    )
     one = ap.add_argument_group("oneshot")
     one.add_argument("--batch", type=int, default=4096, help="queries per batch")
     one.add_argument("--batches", type=int, default=8, help="batches to serve")
@@ -125,20 +146,25 @@ def _parser() -> argparse.ArgumentParser:
 
 def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
     """Flag validation straight off the EngineSpec capability metadata."""
+    for flag, on, kwarg in (
+        ("--block-size", args.block_size is not None, "block_size"),
+        ("--packed", args.packed is not None, "packed"),
+        ("--calibrate", args.calibrate, "threshold"),
+        ("--tune", args.tune, "kernel_config"),
+    ):
+        if on and kwarg not in spec.build_kwargs:
+            ap.error(
+                f"{flag} requires an engine with a '{kwarg}' build kwarg; "
+                f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
+            )
     kw = {}
     if args.block_size is not None:
-        if "block_size" not in spec.build_kwargs:
-            ap.error(
-                f"--block-size requires an engine with a 'block_size' build kwarg; "
-                f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
-            )
         kw["block_size"] = args.block_size
+    if "threshold" in spec.build_kwargs:
+        kw["threshold"] = "calibrated" if args.calibrate else "cached"
+    if "kernel_config" in spec.build_kwargs:
+        kw["kernel_config"] = "tuned" if args.tune else "cached"
     if args.packed is not None:
-        if "packed" not in spec.build_kwargs:
-            ap.error(
-                f"--packed requires an engine with a 'packed' build kwarg; "
-                f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
-            )
         kw["packed"] = args.packed
     return kw
 
@@ -329,24 +355,27 @@ def _run_modes(args, spec, kw, device) -> bool:
     x = rng.random(args.n, dtype=np.float32)
 
     # The staged BuildPlan resolves everything static (device, threshold,
-    # kernel geometry) before touching the array; async warmup reads the
-    # plan's regimes instead of guessing.
+    # kernel geometry: a cache read, or a measurement on a --calibrate or
+    # --tune miss) before touching the array; async warmup reads the plan's
+    # regimes instead of guessing.
+    t0 = time.perf_counter()
     plan = registry.plan_for_serving(args.engine, args.n, device, **kw)
+    t_plan = time.perf_counter() - t0
     t0 = time.perf_counter()
     state = build_mod.execute(plan, x)
     _sync(device)
     pspec = registry.packed_spec(state)
+    thr = plan.meta.get("threshold")
     kcfg = plan.meta.get("kernel_config")
-    kmsg = (
-        f", kernel tile={kcfg.tile} fetch={kcfg.fetch} bs={kcfg.block_size}"
-        if kcfg is not None
-        else ""
-    )
+    msg = f", threshold {thr}" if thr is not None else ""
+    if kcfg is not None:
+        msg += f", kernel tile={kcfg.tile} fetch={kcfg.fetch} bs={kcfg.block_size}"
     print(
         f"[{args.engine}] build {((time.perf_counter() - t0))*1e3:.1f} ms "
         f"(n={args.n}, {plan.layout.num_shards} structure shard(s) x "
         f"{plan.layout.shard_len} cols, layout "
-        f"{pspec.layout if pspec is not None else 'unpacked'}{kmsg})"
+        f"{pspec.layout if pspec is not None else 'unpacked'}{msg}; "
+        f"plan {t_plan*1e3:.1f} ms)"
     )
     if args.mode == "oneshot":
         return _run_oneshot(args, spec, state, x, rng, device)

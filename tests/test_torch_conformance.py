@@ -37,6 +37,8 @@ ENGINES = [
     "block128",
     "block256",
     "lane",
+    "lca",
+    "exhaustive",
     "fused128",
     "fused128_dma",
     "hybrid",
@@ -46,7 +48,7 @@ ENGINES = [
 
 def test_port_registry_has_the_served_engines():
     assert registry.names() == tuple(ENGINES)
-    assert registry.serveable_names() == tuple(ENGINES)
+    assert registry.serveable_names() == tuple(e for e in ENGINES if e != "exhaustive")
     assert set(ENGINES) <= set(jax_registry.names())
 
 
@@ -134,10 +136,24 @@ def test_dispatch_rejects_non_integer_and_out_of_range_bounds():
     assert idx.shape == (0,) and idx.dtype == torch.int32 and val.dtype == torch.int32
 
 
-def test_build_policies_not_ported_yet_raise():
-    for kw in ({"threshold": "cached"}, {"threshold": "calibrated"}, {"kernel_config": "tuned"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_mod.plan_for("hybrid", 1024, device="cpu", use_kernels=True, **kw)
+def test_build_policies_not_ported_yet_raise(tmp_path, monkeypatch):
+    """The cache policies that earlier slices left unported now resolve:
+    "cached" falls back to sqrt(n) and the default geometry on an empty
+    cache, "calibrated" and "tuned" measure on a miss (here a fake
+    measurement), and nothing raises ``NotImplementedError``."""
+    monkeypatch.setenv("RMQ_TORCH_CALIB_CACHE", str(tmp_path / "cal.json"))
+    monkeypatch.setattr(hybrid, "_measure", lambda kind, *a: 0.0 if kind == "short" else 1.0)
+    cached = build_mod.plan_for(
+        "hybrid", 1024, device="cpu", use_kernels=True, threshold="cached", kernel_config="cached"
+    )
+    assert cached.meta["threshold"] == 32 and cached.meta["kernel_config"].tile == 8
+    tuned = build_mod.plan_for(
+        "hybrid", 1024, device="cpu", use_kernels=True, threshold="calibrated", kernel_config="tuned"
+    )
+    assert tuned.meta["threshold"] == 1024  # the short path won at every length
+    assert tuned.meta["kernel_config"].block_size == 128
+    with pytest.raises(ValueError):
+        build_mod.plan_for("hybrid", 1024, device="cpu", threshold="measured")
     with pytest.raises(ValueError):
         registry.plan_for_serving("fused128", 1024, "cpu", threshold=5)
     plan = registry.plan_for_serving("hybrid", 1024, "cpu", threshold=32)

@@ -235,7 +235,7 @@ def test_adaptive_deadline_moves_and_is_recorded():
     assert traj[:3] == (0.005, 0.0025, 0.00125) and traj[3] == pytest.approx(0.001875)
 
 
-@pytest.mark.parametrize("engine", ["hybrid", "fused128", "sparse_table", "lane", "packed_hybrid"])
+@pytest.mark.parametrize("engine", ["hybrid", "fused128", "sparse_table", "lane", "lca", "packed_hybrid"])
 def test_serve_cli_oneshot_on_cpu(engine, capsys):
     serve.main(["--device", "cpu", "--engine", engine, "--n", "4096", "--batch", "256", "--batches", "2"])
     out = capsys.readouterr().out
