@@ -31,7 +31,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    quantized bucket collisions; packed32 on its small-span values, int32
    and float32) at bs in {128, 256}, B in {1, 4099}, tiles 1 and 8, and
    ``lane_partials`` also on a batch whose queries all lie inside single
-   lane blocks;
+   lane blocks (a quarter of them in the maxval blocks). Every query of
+   those batches whose range holds only maxval is also held to the numpy
+   oracle (kernel equal to plain cannot show the maxval-only fault: both
+   were wrong together), for every kernel but packed32;
 5. the served paths. Through ``repro_torch.launch.serve.main``: hybrid and
    fused128 oneshot at n = 2^26, hybrid oneshot at n = 2^20 and at
    ``RESIDENT_NB_CEILING`` blocks (the largest n whose "auto" fetch is
@@ -43,7 +46,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``ops.query(fused=False)`` and ``ops.lane_query`` at n = 2^26. Every
    answer is checked against the numpy oracle; the launch counts are set to
    0 just before each run and read just after, and each run must have
-   launched its kernels (the packed64 run: none of them);
+   launched its kernels (the packed64 run: none of them). Then the
+   maxval-only inputs: [0, inf, inf] and [5, INT32_MAX, INT32_MAX] through
+   block128, block256, lane, fused128, fused128_dma, hybrid (its sqrt(n)
+   threshold sends them to the kernel) and exhaustive, and arrays of
+   n = 2^20 (float32, int32) with maxval runs that cross blocks through the
+   blocked engines, ``ops.query(fused=False)``, ``ops.lane_query`` and
+   quantized packed_hybrid: every answer the oracle's;
 6. the traced async hybrid run (the device's idle share);
 7. the measured crossover and the autotuner, with the calibration cache in
    a temporary file of this run (``RMQ_TORCH_CALIB_CACHE``; every earlier
@@ -58,6 +67,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 2^20, and ``exhaustive`` through the registry at n = 2^20 on 4096
    queries and on an all-equal array (leftmost ties on CUDA), each checked
    against the oracle and launching no kernel;
+7b. online updates: ``--engine hybrid --mode async --mutate 8`` at
+   n = 2^26 through ``launch.serve.main`` (the reference's Poisson mutator,
+   seed 77), its clients paced to keep sending while the eight batches
+   apply (4 x 400 requests at 4 per second) and its threshold pinned to
+   ``ONLINE_THRESHOLD`` in this run's cache, so the `small` lengths split
+   between the blocked path and the patched full-array table: every
+   request equal to the oracle of its pinned version, some of them served
+   at a version between the first and the last (so while a later batch
+   applied), no kernel launched (the online hybrid pins the plain short
+   path, as the reference does); the online build, each publish's time and
+   ``publish_bytes``, update p50/p99, the version lags, the requests per
+   served version and the peak device memory. Through the library at
+   n = 2^20: sparse_table, block128, block256, hybrid (threshold 64, which
+   splits the `small` lengths) and packed_hybrid (packed32 on small-span
+   int32, whose append
+   overflows the index field and rebuilds; quantized; float32 auto ->
+   packed64), each through a point write, a fill and an append: the oracle
+   after every update, a version pinned before them answering from its own
+   tensors, and the final state equal to a from-scratch build on the card
+   leaf for leaf, dtypes included;
 8. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +102,7 @@ comparison: exact.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import json
@@ -89,6 +119,10 @@ FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
 N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: both fetches timed and served here
 EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
+# Phase 7b's routing threshold: about the median `small` length at n = 2^26
+# (n^0.3 = 222), so the online hybrid's blocked path and its sparse table
+# each take part of every launch.
+ONLINE_THRESHOLD = 224
 
 
 def _card_line() -> str:
@@ -255,6 +289,19 @@ def euler_depths(height: int):
     return e
 
 
+def _leaves(s, path="s"):
+    """[(path, tensor)] of every tensor leaf of a NamedTuple state, depth
+    first in field order (configs, closures and ints skipped)."""
+    import torch
+
+    if isinstance(s, torch.Tensor):
+        return [(path, s)]
+    if isinstance(s, tuple):
+        names = getattr(s, "_fields", None) or [f"[{i}]" for i in range(len(s))]
+        return [leaf for name, v in zip(names, s) for leaf in _leaves(v, f"{path}.{name}")]
+    return []
+
+
 def _device_busy_share(torch, np, dev) -> None:
     """The async hybrid ``small`` run again, its client window traced with
     ``torch.profiler`` (device activity only): the device's busy and idle
@@ -321,10 +368,12 @@ def _main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 1
 
+    from repro_torch import update
+    from repro_torch.core import build as build_mod
     from repro_torch.core import calib_cache, hybrid, lane_rmq, ref, registry
     from repro_torch.kernels import _build, ops, tuning
     from repro_torch.kernels.block_min import block_min, block_min_plain
-    from repro_torch.kernels.edge_batch import edge_batch
+    from repro_torch.kernels.edge_batch import edge_batch, maxval_only
     from repro_torch.kernels.fused_query import (
         fused_query,
         fused_query_packed,
@@ -599,6 +648,16 @@ def _main() -> int:
         del fs, ls_, planes, pargs, largs
 
     # --- phase 4b: every kernel on edge_batch, bs = 128 and 256 -------------
+    def on_maxval_only(idx, xq, lq, rq, label):
+        """``idx`` (a kernel's answer) equals the numpy oracle on every query
+        whose range holds only maxval; returns how many there were."""
+        lq, rq = (a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in (lq, rq))
+        carve = maxval_only(xq, lq, rq)
+        got = idx.cpu().numpy()[carve]
+        _require(bool((got == ref.rmq_ref(xq, lq[carve], rq[carve])).all()),
+                 f"{label}: a maxval-only range != oracle")
+        return int(carve.sum())
+
     for bs in (128, 256):
         for dtype in ("float32", "int32"):
             for b in (1, 4099):
@@ -606,6 +665,7 @@ def _main() -> int:
                 lt = torch.from_numpy(l).to(dev)
                 rt = torch.from_numpy(r).to(dev)
                 what = f"edge_batch bs={bs} {dtype} B={b}"
+                n_max = 0  # maxval-only queries held to the oracle
                 fs = ops.build(x, bs, device=dev)
                 _require(
                     all(same_bits(k, p) for k, p in zip(block_min(fs.x_blocks), block_min_plain(fs.x_blocks))),
@@ -621,20 +681,24 @@ def _main() -> int:
                             all(same_bits(g, w) for g, w in zip(got, want)),
                             f"fused_query {fetch} tile={tile} != plain on {what}",
                         )
+                        n_max += on_maxval_only(got[0], x, l, r, f"fused_query {fetch} tile={tile} on {what}")
                 bl, br = lt // bs, rt // bs
                 ls, re = lt - bl * bs, rt - br * bs
                 pargs = (fs.x_blocks, bl, br, ls, torch.where(bl == br, re, bs - 1), re)
+                got = rmq_partials(*pargs)
                 _require(
-                    all(same_bits(g, w) for g, w in zip(rmq_partials(*pargs), rmq_partials_plain(*pargs))),
+                    all(same_bits(g, w) for g, w in zip(got, rmq_partials_plain(*pargs))),
                     f"rmq_partials != plain on {what}",
                 )
+                n_max += on_maxval_only(got[1], x, l, r, f"rmq_partials on {what}")
                 # packed32 needs a small key span: the batch's small-span values
                 xp, lp, rp = edge_batch(bs, dtype, b, small_span=True)
                 packed = {
-                    "quantized": (edge_batch(bs, dtype, b, finite=True)[0], lt, rt),
-                    "packed32": (xp, torch.from_numpy(lp).to(dev), torch.from_numpy(rp).to(dev)),
+                    "quantized": (edge_batch(bs, dtype, b, finite=True)[0], l, r),
+                    "packed32": (xp, lp, rp),
                 }
                 for layout, (xq, lq, rq) in packed.items():
+                    lq, rq = torch.from_numpy(lq).to(dev), torch.from_numpy(rq).to(dev)
                     q, spec = ops.build_packed(xq, bs, layout=layout, device=dev)
                     kw = dict(spec=spec, bmin_val=q.bmin_val)
                     want = fused_query_packed_plain(q.blocks, q.stw, lq, rq, **kw)
@@ -645,11 +709,14 @@ def _main() -> int:
                                 all(same_bits(g, w) for g, w in zip(got, want)),
                                 f"fused_query_packed {layout} {fetch} tile={tile} != plain on {what}",
                             )
+                            if layout == "quantized":  # packed32's small-span values hold no maxval
+                                n_max += on_maxval_only(got[0], xq, lq, rq, f"quantized tile={tile} on {what}")
                 ls_ = lane_rmq.build(x, device=dev)
                 planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
                 # ... and a batch whose queries all lie inside single lane blocks
                 brng = np.random.default_rng(bs + b)
                 blk = brng.integers(0, x.size // 128, b)
+                blk[: b // 4] = brng.integers(2 * bs // 128, 6 * bs // 128, b // 4)  # rows of the maxval blocks
                 lo, hi = brng.integers(0, 128, b), brng.integers(0, 128, b)
                 inside = (blk * 128 + np.minimum(lo, hi), blk * 128 + np.maximum(lo, hi))
                 for lq, rq in ((lt, rt), tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in inside)):
@@ -657,11 +724,17 @@ def _main() -> int:
                     largs = (*planes, sl, sr, lq - sl * 128, rq - sr * 128)
                     want = lane_partials_plain(*largs)
                     for tile in (1, 8):
+                        got = lane_partials(*largs, tile=tile)
                         _require(
-                            all(same_bits(g, w) for g, w in zip(lane_partials(*largs, tile=tile), want)),
+                            all(same_bits(g, w) for g, w in zip(got, want)),
                             f"lane_partials tile={tile} != plain on {what}",
                         )
-                print(f"[edge_batch] bs={bs} {dtype} B={b}: every kernel == plain, bit for bit (tiles 1 and 8)")
+                        n_max += on_maxval_only(got[1], x, lq, rq, f"lane_partials tile={tile} on {what}")
+                _require(n_max > 0, f"no maxval-only range on {what}")
+                print(
+                    f"[edge_batch] bs={bs} {dtype} B={b}: every kernel == plain, bit for bit (tiles 1 and 8); "
+                    f"{n_max} maxval-only answers (kernel, tile, query) equal to the oracle"
+                )
     del flush  # the served runs measure their own peak memory
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s")
 
@@ -804,6 +877,71 @@ def _main() -> int:
         print(f"[served] ops.query(fused=False) and ops.lane_query: 8 x 4096 small ranges at n={N_MAIN}, all equal to the oracle")
 
     drive("two-pass and lane entry points 2^26", entry_point_batches, ("rmq_partials", "lane_partials"))
+
+    def maxval_batches():
+        """Ranges whose every element is the dtype's maximum, served on the
+        card: the three-element inputs of the engines test, then arrays of
+        n = 2^20 with maxval runs crossing blocks (float32 +inf and int32
+        INT32_MAX). Every answer is the oracle's, the first index of such a
+        range (ROADMAP.md §3: the reference answers outside the range)."""
+        small = {
+            "float32": np.array([0.0, np.inf, np.inf], np.float32),
+            "int32": np.array([5, 2**31 - 1, 2**31 - 1], np.int32),
+        }
+        l3, r3 = np.array([1, 2, 1]), np.array([2, 2, 1])
+        names = ("block128", "block256", "lane", "fused128", "fused128_dma", "hybrid", "exhaustive")
+        for dtype, x in small.items():
+            for name in names:
+                spec = registry.get(name)
+                idx, val = spec.query(spec.build(x, device=dev), l3, r3)
+                check(f"{name} {dtype} maxval-only n=3", x, l3, r3, idx, val)
+        qrng = np.random.default_rng(8)
+        for dtype in ("float32", "int32"):
+            if dtype == "float32":
+                x = qrng.random(N_RESIDENT, dtype=np.float32)
+                big = np.float32(np.inf)
+            else:
+                x = qrng.integers(-1000, 1000, N_RESIDENT).astype(np.int32)
+                big = np.int32(2**31 - 1)
+            starts = qrng.integers(0, N_RESIDENT - 3000, 64)
+            lens = qrng.integers(50, 3000, 64)
+            for a, ln in zip(starts, lens):
+                x[a : a + ln] = big
+            # half the queries inside a run (crossing 128-blocks), half anywhere
+            pick = qrng.integers(0, 64, 2048)
+            lo = starts[pick] + qrng.integers(0, lens[pick])
+            hi = starts[pick] + qrng.integers(0, lens[pick])
+            lr, rr = make_queries(qrng, N_RESIDENT, 2048, "small")
+            l = np.concatenate([np.minimum(lo, hi), lr]).astype(np.int32)
+            r = np.concatenate([np.maximum(lo, hi), rr]).astype(np.int32)
+            _require(bool(maxval_only(x, l, r)[:2048].all()), "the run queries hold only maxval")
+            for name in ("block128", "lane", "fused128_dma", "hybrid", "exhaustive"):
+                spec = registry.get(name)
+                idx, val = spec.query(spec.build(x, device=dev), l, r)
+                check(f"{name} {dtype} maxval runs n=2^20", x, l, r, idx, val)
+            fs = ops.build(x, 128, device=dev)
+            check(f"ops.query(fused=False) {dtype} maxval runs", x, l, r, *ops.query(fs, l, r, fused=False))
+            check(f"ops.lane_query {dtype} maxval runs", x, l, r, *ops.lane_query(lane_rmq.build(x, device=dev), l, r))
+            if dtype == "int32":  # a finite value range: quantized takes it
+                q = registry.build_for_serving("packed_hybrid", x, device=dev, packed="quantized", threshold=N_RESIDENT)
+                check(f"packed_hybrid quantized {dtype} maxval runs", x, l, r, *hybrid.query(q, l, r))
+        print(f"[maxval] {checked[1]} maxval-only answers (of {checked[0]} checked) equal to the oracle: "
+              f"the first index of each range")
+
+    checked = [0, 0]  # answers checked against the oracle; of them on maxval-only ranges
+
+    def check(label, x, l, r, idx, val):
+        gold = ref.rmq_ref(x, l, r)
+        _require(
+            bool((idx.cpu().numpy() == gold).all() and (val.cpu().numpy() == x[gold]).all()),
+            f"{label} != oracle",
+        )
+        checked[0] += len(gold)
+        checked[1] += int(maxval_only(x, np.asarray(l), np.asarray(r)).sum())
+
+    drive("maxval-only ranges (n = 3, 2^20)", maxval_batches,
+          ("block_min", "fused_query[resident]", "fused_query[dma]", "fused_query_packed[quantized]",
+           "rmq_partials", "lane_partials"))
     for name, c in counts.items():
         _require(c > 0, f"{name} was not launched on the served paths")
     _device_busy_share(torch, np, dev)
@@ -906,6 +1044,111 @@ def _main() -> int:
             print(f"[exhaustive] {name} n={N_RESIDENT}: 4096 medium ranges in {t * 1e3:.1f} ms, all equal to the oracle")
 
     drive("exhaustive registry 2^20", exhaustive_batches, none=True)
+
+    # --- phase 7b: online updates -------------------------------------------
+    def online_serve():
+        """``--mutate 8`` at n = 2^26 with clients that keep sending while
+        the eight batches apply one after another (4 clients x 400 requests
+        at 4 per second: about 100 s), and a threshold pinned in this run's
+        cache that splits the `small` lengths (about n^0.3), so the patched
+        full-array table serves part of every launch. A request answered at
+        a version between the first and the last was served while the next
+        batch applied (all eight are queued within the first second)."""
+        calib_cache.store(calib_cache.cache_key(N_MAIN, 128), ONLINE_THRESHOLD)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--mode", "async", "--clients", "4", "--requests", "400", "--rate", "4",
+                        "--req-batch", "256", "--engine", "hybrid", "--mutate", "8",
+                        "--n", str(N_MAIN), "--dist", "small"])
+        text = buf.getvalue()
+        print(text, end="")
+        _require(f"threshold {ONLINE_THRESHOLD}," in text, "the online hybrid did not take the pinned threshold")
+        _require("mutate: 8 update batches applied" in text, "not every update batch was applied")
+        split = text.split("regime split ", 1)[1].split(" long", 1)[0]  # "<short> short / <long>"
+        _require(min(int(w) for w in split.split(" short / ")) > 0,
+                 f"the online serve did not send ranges down both paths: {split}")
+        line = next(s for s in text.splitlines() if "served versions (vid: requests):" in s)
+        vids = ast.literal_eval(line.split(":", 2)[2].strip())
+        last = 8  # the base version is 0; each batch publishes one
+        between = sum(c for v, c in vids.items() if 0 < v < last)
+        print(f"[online] requests served at v0: {vids.get(0, 0)}, while a later batch applied "
+              f"(v1..v{last - 1}): {between}, at the last version v{last}: {vids.get(last, 0)}")
+        _require(between > 0, f"no request was served while an update applied: {vids}")
+
+    torch.cuda.reset_peak_memory_stats()
+    drive("hybrid async --mutate 8 2^26", online_serve, none=True)
+    print(f"[online] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (hybrid --mutate 8, n={N_MAIN})")
+
+    def online_library():
+        """Each updatable engine at n = 2^20 through a point write, a fill and
+        an append: the oracle after every update, a version pinned before
+        them answering from its own tensors, and the final state equal to a
+        from-scratch build on the card leaf for leaf, dtypes included."""
+        qrng = np.random.default_rng(9)
+        f32 = qrng.random(N_RESIDENT, dtype=np.float32)
+        span = qrng.integers(-24, 25, N_RESIDENT).astype(np.int32)
+        cases = [
+            ("sparse_table", {}, f32, None),
+            ("block128", {}, f32, None),
+            ("block256", {}, f32, None),
+            # a threshold that splits the `small` lengths (about n^0.3 = 64)
+            ("hybrid", {"threshold": 64}, f32, None),
+            # packed32 on small-span int32; the append past 2^20 overflows the
+            # 20-bit index field and rebuilds under a fresh spec
+            ("packed_hybrid", {"packed": "packed32"}, span, "packed32"),
+            ("packed_hybrid", {"packed": "quantized"}, f32, "quantized"),
+            ("packed_hybrid", {}, f32, "packed64"),  # float32 auto -> packed64
+        ]
+        for name, kw, x, layout in cases:
+            t0 = time.perf_counter()
+            online = update.make_online(name, x, device=dev, **kw)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            if layout is not None:
+                _require(online.store.current.state.spec.layout == layout, f"{name} {kw} resolved to another layout")
+            ver0 = online.pin()
+            before = [t.cpu().clone() for _, t in _leaves(ver0.state)]
+            l0, r0 = make_queries(qrng, x.size, 4096, "small")
+            xm = x.copy()
+            lo = np.int32(-24) if x.dtype == np.int32 else np.float32(-1.0)
+            logs = [
+                update.DeltaLog().point(int(qrng.integers(0, x.size)), lo),
+                update.DeltaLog().fill(1000, 1063, lo + 1),
+                update.DeltaLog().append(x[:32].copy()),
+            ]
+            line = []
+            for log in logs:
+                res = online.apply(log)
+                xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+                l, r = make_queries(qrng, xm.size, 4096, "small")
+                ver = online.pin()
+                idx, val = online.query(ver.state, l, r)
+                online.release(ver.vid)
+                check(f"online {name} {layout or ''} v{res.version}", xm, l, r, idx, val)
+                line.append(f"v{res.version} {'patched' if res.patched else 'rebuilt'} "
+                            f"{res.seconds * 1e3:.1f} ms {res.publish_bytes} B")
+            idx, val = online.query(ver0.state, l0, r0)
+            check(f"online {name} {layout or ''} pinned v0", x, l0, r0, idx, val)
+            _require(all(torch.equal(a, b.cpu()) for a, (_, b) in zip(before, _leaves(ver0.state))),
+                     f"online {name}: a published tensor was written")
+            online.release(ver0.vid)
+            thr = getattr(online.store.current.state, "threshold", None)
+            if thr is not None:
+                plan = build_mod.plan_for("hybrid", xm.size, device=dev, threshold=int(thr),
+                                          use_kernels=False, packed=online.plan.meta.get("packed"))
+                fresh = build_mod.execute(plan, xm)
+            else:
+                fresh = registry.get(name).build(xm, device=dev)
+            want, got = _leaves(fresh), _leaves(online.store.current.state)
+            _require([p for p, _ in want] == [p for p, _ in got], f"online {name}: other leaves")
+            for (path, a), (_, b) in zip(want, got):
+                _require(a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)),
+                         f"online {name} {layout or ''}: leaf {path} != a from-scratch build")
+            print(f"[online] {name} {layout or ''} n={x.size}: build {t_build * 1e3:.1f} ms; "
+                  f"{'; '.join(line)}; oracle after every update, pinned v0 intact, "
+                  f"{len(got)} leaves equal to a from-scratch build")
+
+    drive("online engines 2^20 (library)", online_library, none=True)
 
     # --- phase 8: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"

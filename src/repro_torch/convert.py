@@ -5,7 +5,9 @@ been turned into numpy arrays (any object with the reference's field names
 will do: this module imports nothing of the reference) and returns the
 port's structure on ``device``. Index leaves must be int32 and value leaves
 keep x's dtype, so a structure built by the reference and queried by the
-port answers exactly as the reference does.
+port answers exactly as the reference does. ``online_engine`` carries an
+online engine's state across: the reference's ``OnlineEngine.snapshot()``
+output resumes in the port at the same version.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from repro_torch.core import block_rmq as _block_rmq
 from repro_torch.core import hybrid as _hybrid
 from repro_torch.core import sparse_table as _sparse_table
 
-__all__ = ["block_rmq", "fused_rmq", "hybrid", "sparse_table"]
+__all__ = ["block_rmq", "fused_rmq", "hybrid", "online_engine", "sparse_table"]
 
 
 def _leaf(a, device, *, index: bool = False) -> torch.Tensor:
@@ -86,3 +88,17 @@ def hybrid(h, device=None, *, use_kernels: bool | None = None) -> _hybrid.Hybrid
     return _hybrid.assemble(
         blocked, sparse_table(h.st, dev), _leaf(h.x, dev), int(h.threshold), use_kernels, cfg
     )
+
+
+def online_engine(arrays, meta, device=None):
+    """An ``update.OnlineEngine`` resumed from ``OnlineEngine.snapshot()``
+    output of either package: ``arrays`` (numpy leaves by name) and the JSON
+    ``meta`` (engine, vid, n, dtype, build kwargs), unchanged. The engine
+    continues at the snapshot's version id with the same answers and
+    leaves; its mirrors are the snapshot's arrays, so no argmin is rebuilt.
+    """
+    from repro_torch.update import OnlineEngine
+
+    if int(meta["n"]) != np.asarray(arrays["x"]).shape[0]:
+        raise ValueError(f"snapshot meta says n={meta['n']}, its x has {np.asarray(arrays['x']).shape[0]}")
+    return OnlineEngine.from_snapshot(arrays, meta, device=device)

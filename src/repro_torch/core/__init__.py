@@ -16,8 +16,10 @@
   * ``calib_cache``  — the persistent cache of measured thresholds and tuned
     kernel configs.
   * ``build``        — the staged BuildPlan pipeline every build lowers
-    through.
-  * ``registry``     — one ``(build, query) -> (idx, val)`` spec per engine.
+    through, and the online-update plans (``update_plan``,
+    ``execute_update``) of ``repro_torch.update``.
+  * ``registry``     — one ``(build, query) -> (idx, val)`` spec per engine;
+    ``updatable_names()`` lists the engines ``repro_torch.update`` patches.
 """
 
 from . import (

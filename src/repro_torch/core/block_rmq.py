@@ -52,18 +52,40 @@ class BlockRMQ(NamedTuple):
     st: sparse_table.SparseTable  # doubling table over bmin_val
 
 
-def leftmost_min(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _mask(rows: torch.Tensor, inside):
+    """``rows`` with the lanes outside ``inside`` set to maxval."""
+    if inside is None:
+        return rows
+    return torch.where(inside, rows, maxval(rows.dtype))
+
+
+def _first_lane(rows: torch.Tensor, vmin: torch.Tensor, inside) -> torch.Tensor:
+    """Per row, the first lane holding ``vmin`` (int32), among the lanes of
+    ``inside`` only; ``bs`` when none does."""
+    bs = rows.shape[1]
+    lanes = torch.arange(bs, dtype=torch.int32, device=rows.device)
+    hit = rows == vmin[:, None]
+    if inside is not None:
+        hit = hit & inside
+    return torch.where(hit, lanes, bs).min(dim=1).values
+
+
+def leftmost_min(rows: torch.Tensor, inside=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (min value, leftmost lane int32) of a ``(B, bs)`` tensor.
 
     The lane is the masked-iota min; the value is read back at that lane, so
     it is the value the leftmost minimum holds (as the reference's
-    ``take_along_axis`` does).
+    ``take_along_axis`` does). ``inside`` (a ``(B, bs)`` bool mask) restricts
+    each row to a range: a lane outside it carries maxval at position
+    ``bs``, past every in-range lane, so it never wins a tie, and a range
+    whose minimum is maxval answers with its first lane (the reference's
+    masked lanes win that tie: ROADMAP.md §3). A row with no lane inside
+    gives ``(maxval, bs)``.
     """
     bs = rows.shape[1]
-    vmin = rows.min(dim=1).values
-    lanes = torch.arange(bs, dtype=torch.int32, device=rows.device)
-    lidx = torch.where(rows == vmin[:, None], lanes, bs).min(dim=1).values
-    val = rows.gather(1, lidx[:, None].long())[:, 0]
+    rows = _mask(rows, inside)
+    lidx = _first_lane(rows, rows.min(dim=1).values, inside)
+    val = rows.gather(1, lidx.clamp(max=bs - 1)[:, None].long())[:, 0]
     return val, lidx
 
 
@@ -79,16 +101,16 @@ def signed_min(rows: torch.Tensor) -> torch.Tensor:
     return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
 
 
-def kernel_leftmost_min(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def kernel_leftmost_min(rows: torch.Tensor, inside=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (min value, leftmost lane int32) as the reference kernels
     compute them: ``vmin = min(rows)`` (:func:`signed_min`) and the lane
     ``min(where(rows == vmin, iota, bs))``. The plain version of every CUDA
     kernel's row reduction (``csrc/common.cuh``). It differs from
-    :func:`leftmost_min` only in the sign of a zero minimum."""
-    bs = rows.shape[1]
+    :func:`leftmost_min` only in the sign of a zero minimum; ``inside``
+    masks as there (``LaneMin::fold``)."""
+    rows = _mask(rows, inside)
     vmin = signed_min(rows)
-    lanes = torch.arange(bs, dtype=torch.int32, device=rows.device)
-    return vmin, torch.where(rows == vmin[:, None], lanes, bs).min(dim=1).values
+    return vmin, _first_lane(rows, vmin, inside)
 
 
 def pad_blocks(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -131,13 +153,13 @@ def _block_scan(xb, blk, lo, hi):
     """Masked min+argmin of xb[blk, lo:hi+1] per query (the 'ray' primitive).
 
     Returns (value, global_index); value == maxval when lo > hi (empty range).
+    A maxval minimum answers with the range's first index (:func:`leftmost_min`).
     """
     bs = xb.shape[1]
     rows = xb[blk]  # (B, bs) gather of the candidate block
     lanes = torch.arange(bs, dtype=torch.int32, device=xb.device)[None, :]
     inside = (lanes >= lo[:, None]) & (lanes <= hi[:, None])
-    masked = torch.where(inside, rows, maxval(xb.dtype))
-    val, lidx = leftmost_min(masked)
+    val, lidx = leftmost_min(rows, inside)
     return val, blk * bs + lidx
 
 

@@ -7,6 +7,8 @@ dict:
     local_build    the structures, on the plan's device
     finalize       assemble the engine state (+ query closures)
 
+and the online-update plans (``update_plan``) run two more over a delta
+batch: ``apply_deltas`` then ``publish`` (``repro_torch.update``).
 Single-host engines carry the degenerate layout (one shard); the halo stage
 of the mesh engines comes with the multi-device slice. ``plan_for(engine,
 n, ...)`` resolves everything static at plan time (the device, the routing
@@ -34,13 +36,18 @@ __all__ = [
     "ShardLayout",
     "build",
     "execute",
+    "execute_update",
     "plan_for",
     "planner_names",
     "run_stages",
+    "update_plan",
     "warmup_bounds",
 ]
 
-STAGE_NAMES = ("shard_layout", "local_build", "finalize")
+# Canonical stage order: the build pipeline, then the online-update pipeline
+# (``apply_deltas`` patches the structures from a coalesced DeltaBatch,
+# ``publish`` installs the patched state as the next MVCC version).
+STAGE_NAMES = ("shard_layout", "local_build", "finalize", "apply_deltas", "publish")
 
 
 class ShardLayout(NamedTuple):
@@ -184,6 +191,39 @@ def execute(plan: BuildPlan, x, *, observer: Optional[Callable] = None):
     if x.ndim != 1 or x.shape[0] != plan.layout.n:
         raise ValueError(f"plan for n={plan.layout.n} executed on array of shape {tuple(x.shape)}")
     return run_stages(plan, {"x": x}, observer=observer)
+
+
+# --- online-update pipeline --------------------------------------------------
+
+
+def update_plan(
+    engine: str,
+    layout: ShardLayout,
+    apply_fn: Callable[[dict], dict],
+    publish_fn: Callable[[dict], dict],
+    meta: Optional[Dict[str, Any]] = None,
+) -> BuildPlan:
+    """The two-stage online-update plan: ``apply_deltas`` -> ``publish``.
+
+    ``apply_fn`` consumes ``state["deltas"]`` (a coalesced
+    ``repro_torch.update.DeltaBatch``) and writes ``state["patched"]`` (the
+    next engine state, copy-on-write over the previous version's leaves);
+    ``publish_fn`` installs it as the next MVCC version and writes
+    ``state["result"]`` (an ``UpdateResult``). ``update.OnlineEngine``
+    constructs these plans; they run through the same ``run_stages``
+    sequencer (and observer seam) as builds.
+    """
+    return BuildPlan(
+        engine,
+        layout,
+        (BuildStage("apply_deltas", apply_fn), BuildStage("publish", publish_fn)),
+        dict(meta or {}),
+    )
+
+
+def execute_update(plan: BuildPlan, deltas, *, observer: Optional[Callable] = None):
+    """Run an update plan over a coalesced ``DeltaBatch``."""
+    return run_stages(plan, {"deltas": deltas}, observer=observer)
 
 
 _PLANNERS: Dict[str, Callable] = {}

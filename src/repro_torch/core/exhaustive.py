@@ -10,9 +10,10 @@ XLA may fuse those away; eager PyTorch does not, so the chunk is also
 bounded by bytes (``_CHUNK_BYTES``): at n = 2^26 float32 a chunk of 256
 queries would be 64 GiB. The answers do not depend on the chunking.
 
-Masked lanes carry the dtype's maximum, as in the reference, so a range
-whose every element equals that maximum answers with the leftmost element
-of the whole row (ROADMAP.md §3, the maxval-only fault of both packages).
+Masked lanes carry the dtype's maximum, as in the reference. Where the
+range's minimum is that maximum, the argmin would land on a masked lane
+left of the range (the reference's answer); the port answers with the
+range's first index instead (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -54,5 +55,7 @@ def rmq_exhaustive(x: torch.Tensor, l, r, *, query_chunk: int = 256) -> torch.Te
         rc = r[s : s + chunk, None]
         inside = (idx[None, :] >= lc) & (idx[None, :] <= rc)
         masked = torch.where(inside, x[None, :], big)
-        out[s : s + chunk] = torch.argmin(masked, dim=1).to(torch.int32)
+        a = torch.argmin(masked, dim=1)
+        only_max = masked.gather(1, a[:, None])[:, 0] == big
+        out[s : s + chunk] = torch.where(only_max, lc[:, 0], a.to(torch.int32))
     return out

@@ -113,6 +113,6 @@ def query(s: LaneRMQ, l, r) -> Tuple[torch.Tensor, torch.Tensor]:
     # Same-lane-block path: one 128-wide masked min.
     lanes = torch.arange(LANE, dtype=torch.int32, device=dev)[None, :]
     inside = (lanes >= llo[:, None]) & (lanes <= rlo[:, None])
-    sv, lidx = leftmost_min(torch.where(inside, s.xs[sl], big))
+    sv, lidx = leftmost_min(s.xs[sl], inside)
     si = sl * LANE + lidx
     return torch.where(same, si, i), torch.where(same, sv, v)

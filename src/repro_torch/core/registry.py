@@ -30,6 +30,7 @@ __all__ = [
     "packed_spec",
     "plan_for_serving",
     "serveable_names",
+    "updatable_names",
 ]
 
 
@@ -39,8 +40,9 @@ class EngineSpec(NamedTuple):
     ``build``/``query`` are the conformance contract every oracle sweep
     uses. ``build_kwargs`` is the vocabulary of serving build options the
     engine understands. ``serve_plan`` resolves the engine's serving
-    BuildPlan: ``(n, device, **kw) -> BuildPlan``. ``doc`` is one line for
-    CLI help and error messages.
+    BuildPlan: ``(n, device, **kw) -> BuildPlan``. ``updatable`` enrolls it
+    in the online updates. ``doc`` is one line for CLI help and error
+    messages.
     """
 
     build: Callable  # (x, device=None) -> state
@@ -48,6 +50,11 @@ class EngineSpec(NamedTuple):
     serveable: bool = True
     build_kwargs: frozenset = frozenset()
     serve_plan: Optional[Callable] = None  # (n, device, **kw) -> BuildPlan
+    # The engine enrolls in the online-update subsystem (``repro_torch.update``):
+    # its structures are patched incrementally (delta patch + MVCC version
+    # publish) instead of rebuilt. ``update.make_online`` validates the flag
+    # against its per-engine patch implementations.
+    updatable: bool = False
     doc: str = ""
 
 
@@ -146,6 +153,7 @@ ENGINES: dict = {
         packed_query_fn=sparse_table.query_packed,
         build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("sparse_table"),
+        updatable=True,
         doc="O(1) doubling-table lookups",
     ),
     "block128": EngineSpec(
@@ -153,6 +161,7 @@ ENGINES: dict = {
         _block_query,
         build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("block", block_size=128),
+        updatable=True,
         doc="plain PyTorch blocked, bs=128",
     ),
     "block256": EngineSpec(
@@ -160,6 +169,7 @@ ENGINES: dict = {
         _block_query,
         build_kwargs=frozenset({"packed"}),
         serve_plan=_simple_serve_plan("block", block_size=256),
+        updatable=True,
         doc="plain PyTorch blocked, bs=256",
     ),
     "lane": EngineSpec(
@@ -195,6 +205,7 @@ ENGINES: dict = {
         serve_plan=_simple_serve_plan(
             "hybrid", block_size=128, threshold="cached", kernel_config="cached"
         ),
+        updatable=True,
         doc="range-adaptive blocked/sparse-table crossover dispatcher",
     ),
     # The packed-word hybrid: both tiers carry (value, index) words; the
@@ -209,6 +220,7 @@ ENGINES: dict = {
         serve_plan=_simple_serve_plan(
             "hybrid", block_size=128, threshold="cached", kernel_config="cached", packed="auto"
         ),
+        updatable=True,
         doc="hybrid over packed (value, index) word planes",
     ),
 }
@@ -220,6 +232,11 @@ def names() -> Tuple[str, ...]:
 
 def serveable_names() -> Tuple[str, ...]:
     return tuple(n for n, s in ENGINES.items() if s.serveable)
+
+
+def updatable_names() -> Tuple[str, ...]:
+    """Engines enrolled in the online-update subsystem (``repro_torch.update``)."""
+    return tuple(n for n, s in ENGINES.items() if s.updatable)
 
 
 def get(name: str) -> EngineSpec:

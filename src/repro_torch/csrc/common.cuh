@@ -196,27 +196,35 @@ __device__ __forceinline__ int4 load_piece(const T* __restrict__ row, int p0, in
   return __ldg(reinterpret_cast<const int4*>(row + p0));
 }
 
-// One lane's candidate of one row: the leftmost min of the values it has
-// folded, in increasing position, and whether an in-range one was -0.0.
+// One lane's candidate of one row over the range [lo, hi]: the leftmost min
+// of the values it has folded, and whether an in-range one was -0.0. It
+// starts as (maxval, lo), the range's first position. A lane folds its
+// values in increasing position, so a strict ``<`` keeps the leftmost of
+// equal values, and a masked position (maxval) never replaces the start: a
+// range whose minimum is maxval answers with its first position, never with
+// a masked lane left of it (the reference's masked lanes carry maxval at
+// their own position and win that tie; ROADMAP.md §3). Across lanes the
+// candidates merge by ``take_leftmost``.
 template <typename T>
 struct LaneMin {
   T v;
   int pos;
   bool neg;
 
-  __device__ __forceinline__ explicit LaneMin(int bs) : v(MaxVal<T>::get()), pos(bs), neg(false) {}
+  __device__ __forceinline__ explicit LaneMin(int lo) : v(MaxVal<T>::get()), pos(lo), neg(false) {}
 
-  // The four values of one piece at positions p0..p0+3. Out-of-range
-  // positions carry maxval at their own position, exactly the reference's
-  // masked lanes, so even a range whose minimum is maxval resolves as
-  // ``min(where(x == vmin, iota, bs))`` does.
+  // The four values of one piece at positions p0..p0+3, after every
+  // position this lane folded before.
   __device__ __forceinline__ void fold(int4 w, int p0, int lo, int hi) {
     const int32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = p0 + e;
       const T x = (p >= lo && p <= hi) ? from_word<T>(words[e]) : MaxVal<T>::get();
-      take_leftmost(x, p, v, pos);
+      if (x < v) {
+        v = x;
+        pos = p;
+      }
       neg |= is_neg_zero(x);
     }
   }
@@ -273,7 +281,7 @@ struct Partials {
   }
 
   __device__ __forceinline__ void finish(int lane, T& pv, int& pi) const {
-    LaneMin<T> cl(bs), cr(bs);
+    LaneMin<T> cl(ls), cr(0);
     fold(0, lane, head_l, head_r, cl, cr);
     for (int base = kPiece * C; base < bs; base += kPiece * C) {
       int4 pl[C], pr[C];

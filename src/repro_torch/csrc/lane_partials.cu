@@ -76,8 +76,10 @@ __device__ __forceinline__ float zero_sign_of(float v, bool neg) {
 // lane of each (``w``, positions 4 * lane.., range [lo, hi]; an empty range
 // for a row no query asked for). Each lane folds its pieces; each round of
 // the reduce-scatter halves the rows a lane holds and doubles the lanes that
-// hold one, so lanes kPer * j.. end with row j, and lane j fetches it. The
-// sign of a zero minimum is the OR of the lanes' flags. Valid in lanes
+// hold one, so lanes kPer * j.. end with row j, and lane j fetches it. A
+// position outside a row's range never wins a tie (``LaneMin::fold``), so a
+// row whose range holds only maxval answers with its first in-range
+// position. The sign of a zero minimum is the OR of the lanes' flags. Valid in lanes
 // 0..kQueries-1: (value, position in the row).
 template <typename T>
 __device__ __forceinline__ void rows_min(const int4 (&w)[kQueries], const int (&lo)[kQueries],
@@ -87,7 +89,7 @@ __device__ __forceinline__ void rows_min(const int4 (&w)[kQueries], const int (&
   unsigned neg = 0;
 #pragma unroll
   for (int j = 0; j < kQueries; ++j) {
-    LaneMin<T> c(kLane);
+    LaneMin<T> c(lo[j]);
     c.fold(w[j], 4 * lane, lo[j], hi[j]);
     rv[j] = c.v;
     rp[j] = c.pos;

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["NB", "edge_batch"]
+__all__ = ["NB", "edge_batch", "maxval_only"]
 
 NB = 24  # blocks of the array (the last one padded)
 
@@ -107,3 +107,14 @@ def edge_batch(
     l = np.concatenate([[q[0] for q in fixed], l]).astype(np.int32)
     r = np.concatenate([[q[1] for q in fixed], r]).astype(np.int32)
     return x, l, r
+
+
+def maxval_only(x: np.ndarray, l, r) -> np.ndarray:
+    """Per query, whether every element of ``x[l..r]`` is the dtype's
+    maximum (+inf, INT32_MAX): the ranges where a masked lane carrying that
+    maximum at its own position would win the leftmost tie (ROADMAP.md §3).
+    The port answers them with ``l``, as the oracle does."""
+    x = np.asarray(x)
+    big = np.inf if np.issubdtype(x.dtype, np.floating) else np.iinfo(x.dtype).max
+    real = np.concatenate([[0], np.cumsum(x != big)])
+    return real[np.asarray(r) + 1] == real[np.asarray(l)]

@@ -17,7 +17,7 @@ import threading
 import torch
 
 from repro_torch._device import as_index
-from repro_torch.core.block_rmq import kernel_leftmost_min, maxval
+from repro_torch.core.block_rmq import kernel_leftmost_min
 from repro_torch.core.lane_rmq import LANE
 
 from . import _build
@@ -32,8 +32,8 @@ _count_lock = threading.Lock()
 def lane_partials_plain(xs, suff_val, suff_idx, pref_val, pref_idx, sl, sr, llo, rlo):
     """The reference kernel's arithmetic (lane_query.py:52-71): the straddle
     pick (``lv <= rv`` keeps the suffix) and the masked-iota min of the raw
-    row, selected by ``sl == sr``. Returns (value, global idx)."""
-    big = maxval(xs.dtype)
+    row, selected by ``sl == sr``; a lane outside the row's range never wins
+    a tie (the repair of ROADMAP.md §3). Returns (value, global idx)."""
     lv = suff_val[sl, llo]
     li = suff_idx[sl, llo]
     rv = pref_val[sr, rlo]
@@ -43,8 +43,7 @@ def lane_partials_plain(xs, suff_val, suff_idx, pref_val, pref_idx, sl, sr, llo,
     str_i = torch.where(take_l, li, ri)
 
     lanes = torch.arange(LANE, dtype=torch.int32, device=xs.device)[None, :]
-    masked = torch.where((lanes >= llo[:, None]) & (lanes <= rlo[:, None]), xs[sl], big)
-    mv, mi = kernel_leftmost_min(masked)
+    mv, mi = kernel_leftmost_min(xs[sl], (lanes >= llo[:, None]) & (lanes <= rlo[:, None]))
     mi = sl * LANE + mi
 
     same = sl == sr

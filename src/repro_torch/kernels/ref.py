@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.block_rmq import maxval
+from repro_torch.core.block_rmq import leftmost_min, maxval
 
 __all__ = ["block_min_ref", "rmq_partials_ref"]
 
@@ -26,19 +26,18 @@ def rmq_partials_ref(x_blocks, bl, br, lstart, lend, rend):
     Left partial = min of x_blocks[bl, lstart:lend+1] (always non-empty);
     right partial = min of x_blocks[br, 0:rend+1] (masked off unless
     br > bl). Returns their leftmost-tie merge as (value, global idx int32).
+    Each side is the first minimal lane of its range (``leftmost_min``): the
+    leftmost element's bits, as the reference's argmin gives them, and a
+    maxval-only range answers with its first index (ROADMAP.md §3).
     """
     bs = x_blocks.shape[1]
     big = maxval(x_blocks.dtype)
     lanes = torch.arange(bs, dtype=torch.int32, device=x_blocks.device)[None, :]
 
-    ml = torch.where((lanes >= lstart[:, None]) & (lanes <= lend[:, None]), x_blocks[bl], big)
-    li = torch.argmin(ml, dim=1).to(torch.int32)
-    lv = ml.gather(1, li[:, None].long())[:, 0]
+    lv, li = leftmost_min(x_blocks[bl], (lanes >= lstart[:, None]) & (lanes <= lend[:, None]))
     lg = bl * bs + li
 
-    mr = torch.where(lanes <= rend[:, None], x_blocks[br], big)
-    ri = torch.argmin(mr, dim=1).to(torch.int32)
-    rv = mr.gather(1, ri[:, None].long())[:, 0]
+    rv, ri = leftmost_min(x_blocks[br], lanes <= rend[:, None])
     rv = torch.where(br > bl, rv, big)
     rg = br * bs + ri
 

@@ -31,21 +31,24 @@ _count_lock = threading.Lock()
 def rmq_partials_plain(x_blocks, bl, br, lstart, lend, rend):
     """The reference kernel's arithmetic (rmq_query.py:55-72): masked-iota
     leftmost min of each side (``kernel_leftmost_min``), the right side set
-    to maxval unless ``br > bl``, ``lv <= rv`` keeps the left. Returns
-    (value, global idx)."""
+    to maxval unless ``br > bl``, ``lv <= rv`` keeps the left. A lane
+    outside a side's range never wins a tie, so a maxval-only range answers
+    with its first index (the repair of ROADMAP.md §3). Returns (value,
+    global idx)."""
     bs = x_blocks.shape[1]
     big = maxval(x_blocks.dtype)
     lanes = torch.arange(bs, dtype=torch.int32, device=x_blocks.device)[None, :]
 
-    ml = torch.where((lanes >= lstart[:, None]) & (lanes <= lend[:, None]), x_blocks[bl], big)
-    lv, li = kernel_leftmost_min(ml)
+    inside_l = (lanes >= lstart[:, None]) & (lanes <= lend[:, None])
+    lv, li = kernel_leftmost_min(x_blocks[bl], inside_l)
     lg = bl * bs + li
 
     # The right lane is the one the reference finds after masking rv, which
     # only matters when the left candidate wins anyway.
-    mr = torch.where(lanes <= rend[:, None], x_blocks[br], big)
+    inside_r = lanes <= rend[:, None]
+    mr = torch.where(inside_r, x_blocks[br], big)
     rv = torch.where(br > bl, signed_min(mr), big)
-    ri = torch.where(mr == rv[:, None], lanes, bs).min(dim=1).values
+    ri = torch.where(inside_r & (mr == rv[:, None]), lanes, bs).min(dim=1).values
     rg = br * bs + ri
 
     take_l = lv <= rv  # left candidate has smaller indices: leftmost ties

@@ -10,6 +10,12 @@ Two modes:
   padded engine launches, scatters per-request results back, and EVERY
   request is verified bit-identical against the oracle. Prints p50/p99
   latency, sustained throughput, and the microbatch/coalescing profile.
+  With ``--mutate K`` (engines declaring ``updatable``), a mutator thread
+  interleaves K update batches (point writes, range fills, appends) through
+  ``submit_update`` while the clients run: the engine is built as a
+  ``repro_torch.update.OnlineEngine``, each request is answered against its
+  pinned MVCC version, and verification replays the delta stream on the
+  host so every request is checked against the oracle **of its version**.
 
 The engine runs on ``--device`` (default ``cuda``; it fails when CUDA is
 absent, it does not fall back). Engine choices and flag validation derive
@@ -24,8 +30,8 @@ measures it there on a miss; engines declaring ``kernel_config`` read their
 kernel geometry from it, and ``--tune`` sweeps on a miss. The build line
 names the resolved threshold and geometry, and the time resolving them took.
 Port of ``repro/launch/serve.py`` for the single-device engines; the flags
-of later slices (--qshard, --mutate, --restore, --chaos, --replicas) are
-not ported yet.
+of later slices (--restore, --chaos, --qshard, --replicas) are not ported
+yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
@@ -35,6 +41,8 @@ not ported yet.
       --packed quantized --n 67108864
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --engine hybrid --calibrate --tune --n 67108864
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --engine hybrid --mutate 8 --n 67108864
 """
 
 from __future__ import annotations
@@ -48,11 +56,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import update as update_mod
 from repro_torch._device import resolve, to_numpy
 from repro_torch.core import build as build_mod
 from repro_torch.core import ref, registry
 from repro_torch.obs import Tracer, set_tracer, verify_request_chains
-from repro_torch.serve import RMQServer, ServeConfig
+from repro_torch.serve import RMQServer, ServeConfig, ServerOverloaded
 from repro_torch.serve.workload import make_queries, run_poisson_clients
 
 __all__ = ["main"]
@@ -119,6 +128,21 @@ def _parser() -> argparse.ArgumentParser:
     asy.add_argument("--workers", type=int, default=1, help="engine-pool threads")
     asy.add_argument("--max-pending", type=int, default=4096, help="admission-control bound")
     asy.add_argument(
+        "--mutate",
+        type=int,
+        default=0,
+        metavar="K",
+        help="interleave K update batches (point/range writes + appends) "
+        "while serving (engines declaring 'updatable'); every request is "
+        "verified against the oracle of its pinned version",
+    )
+    asy.add_argument(
+        "--mutate-rate",
+        type=float,
+        default=50.0,
+        help="mutator offered load, update batches/s",
+    )
+    asy.add_argument(
         "--adaptive-deadline",
         action="store_true",
         help="let the batcher shrink its deadline under load and grow it when idle",
@@ -156,6 +180,14 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
             ap.error(
                 f"{flag} requires an engine with a '{kwarg}' build kwarg; "
                 f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
+            )
+    if args.mutate:
+        if args.mode != "async":
+            ap.error("--mutate requires --mode async")
+        if not spec.updatable:
+            ap.error(
+                f"--mutate requires an updatable engine; "
+                f"{args.engine} is not (have {registry.updatable_names()})"
             )
     kw = {}
     if args.block_size is not None:
@@ -200,7 +232,7 @@ def _run_oneshot(args, spec, state, x, rng, device) -> bool:
     return ok
 
 
-def _run_async(args, spec, state, x, plan, device) -> bool:
+def _run_async(args, spec, state, x, plan, device, online=None) -> bool:
     cfg = ServeConfig(
         deadline_s=args.deadline_ms * 1e-3,
         max_batch=args.max_batch,
@@ -210,17 +242,43 @@ def _run_async(args, spec, state, x, plan, device) -> bool:
         val_dtype=x.dtype,
         adaptive_deadline=args.adaptive_deadline,
     )
-    qfn = lambda l, r: spec.query(state, l, r)
-    srv = RMQServer(
-        qfn,
-        cfg,
-        warmup_bounds=build_mod.warmup_bounds(plan),
-        trace_attrs=_span_attrs(args.engine, plan),
-    )
+    okw = dict(warmup_bounds=build_mod.warmup_bounds(plan), trace_attrs=_span_attrs(args.engine, plan))
+    if online is not None:
+        srv = RMQServer(config=cfg, online=online, **okw)
+    else:
+        srv = RMQServer(lambda l, r: spec.query(state, l, r), cfg, **okw)
     srv.warmup()  # every padded launch shape, per plan regime
+    base_vid = online.current_vid if online is not None else 0
+
+    upd_futs = []
+
+    def mutator():
+        # Open-loop Poisson mutator: point writes every batch, a range fill
+        # every 3rd, an append every 4th; overload rejections are dropped.
+        mrng = np.random.default_rng(77)
+        for i in range(args.mutate):
+            if args.mutate_rate > 0:
+                time.sleep(mrng.exponential(1.0 / args.mutate_rate))
+            cur_n = online.n
+            log = update_mod.DeltaLog()
+            for _ in range(3):
+                log.point(int(mrng.integers(0, cur_n)), float(mrng.random()))
+            if i % 3 == 1 and cur_n > 2:
+                a = int(mrng.integers(0, cur_n - 1))
+                log.fill(a, min(a + 63, cur_n - 1), float(mrng.random()))
+            if i % 4 == 3:
+                log.append(mrng.random(32, dtype=np.float32))
+            try:
+                upd_futs.append((log, srv.submit_update(log)))
+            except ServerOverloaded:
+                pass
 
     with _metrics_dump(args.metrics_interval, srv.metrics.snapshot), srv:
         t0 = time.perf_counter()
+        mut = None
+        if online is not None and args.mutate:
+            mut = threading.Thread(target=mutator, name="mutator")
+            mut.start()
         per_client = run_poisson_clients(
             args.clients,
             args.requests,
@@ -229,6 +287,8 @@ def _run_async(args, spec, state, x, plan, device) -> bool:
             srv.submit,
             seed=10_000,
         )
+        if mut is not None:
+            mut.join()
         done = []
         dropped = 0
         for out in per_client:
@@ -240,11 +300,24 @@ def _run_async(args, spec, state, x, plan, device) -> bool:
         wall = time.perf_counter() - t0  # serving only: verification is below
     st = srv.stats()
 
+    # Replay the delta stream on the host: one oracle array per published
+    # version (submission order == publish order: single updater thread).
+    oracles = {base_vid: x}
+    results = []
+    if upd_futs:
+        xm = x.copy()
+        for log, fut in upd_futs:
+            res = fut.result(timeout=300)
+            xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+            oracles[res.version] = xm.copy()
+            results.append(res)
+
     served = len(done)
     mismatches = 0
     for l, r, res in done:
-        gold = ref.rmq_ref(x, l, r)
-        if not (np.array_equal(res.idx, gold) and np.array_equal(res.val, x[gold])):
+        ox = oracles[res.version if res.version is not None else base_vid]
+        gold = ref.rmq_ref(ox, l, r)
+        if not (np.array_equal(res.idx, gold) and np.array_equal(res.val, ox[gold])):
             mismatches += 1
 
     print(
@@ -254,11 +327,31 @@ def _run_async(args, spec, state, x, plan, device) -> bool:
         f"{wall*1e3:.0f} ms wall"
     )
     print(f"  {st.summary()}")
+    if results:
+        patched = sum(res.patched for res in results)
+        print(
+            f"  mutate: {len(results)} update batches applied "
+            f"({patched} patched, {len(results) - patched} rebuilt), n {args.n} -> {online.n}, "
+            f"{len(oracles)} oracle versions"
+        )
+        for res in results:
+            print(
+                f"  update v{res.version}: {'patched' if res.patched else 'rebuilt'}, "
+                f"{res.n_writes} writes + {res.n_appended} appended, n={res.n}, "
+                f"apply {res.seconds*1e3:.1f} ms, publish_bytes {res.publish_bytes}"
+            )
+        lags = np.unique(np.asarray(st.version_lags, np.int64), return_counts=True)
+        print(f"  version lags (lag: launches): {dict(zip(lags[0].tolist(), lags[1].tolist()))}")
+        vids = np.unique([res.version for _, _, res in done], return_counts=True)
+        print(f"  served versions (vid: requests): {dict(zip(vids[0].tolist(), vids[1].tolist()))}")
     print(
         f"  verify: {served - mismatches}/{served} requests bit-identical to the "
-        f"oracle; dropped {dropped}"
+        f"oracle of their pinned version; dropped {dropped}"
     )
-    return mismatches == 0 and served > 0
+    ok = mismatches == 0 and served > 0
+    if args.mutate:
+        ok = ok and len(upd_futs) > 0
+    return ok
 
 
 def _span_attrs(engine: str, plan) -> dict:
@@ -353,6 +446,21 @@ def main(argv=None) -> None:
 def _run_modes(args, spec, kw, device) -> bool:
     rng = np.random.default_rng(0)
     x = rng.random(args.n, dtype=np.float32)
+
+    if args.mutate:
+        # Online build: the OnlineEngine plans + builds version 0 and owns
+        # the MVCC store; the server pins versions per launch.
+        t0 = time.perf_counter()
+        online = update_mod.make_online(args.engine, x, device=device, **kw)
+        _sync(device)
+        plan = online.plan
+        print(
+            f"[{args.engine}] online build {((time.perf_counter() - t0))*1e3:.1f} ms "
+            f"(n={args.n}, {plan.layout.num_shards} structure shard(s) x "
+            f"{plan.layout.shard_len} cols, threshold {plan.meta.get('threshold')}, "
+            f"version {online.current_vid})"
+        )
+        return _run_async(args, spec, None, x, plan, device, online=online)
 
     # The staged BuildPlan resolves everything static (device, threshold,
     # kernel geometry: a cache read, or a measurement on a --calibrate or

@@ -7,7 +7,9 @@
 
 ``batcher`` is the pure coalescing/padding/scatter core; ``server.RMQServer``
 wires it to a bounded request queue, a deadline flush loop and a worker
-pool; ``workload`` provides the paper's §6.4 range distributions (int32 at
+pool, and over an online engine (``online=``, ``repro_torch.update``) to a
+single updater thread behind ``submit_update``, each launch pinning a
+version (``RequestResult.version``, the update fields of ``ServeStats``); ``workload`` provides the paper's §6.4 range distributions (int32 at
 the boundary) and open-loop Poisson clients. ``batcher`` and ``workload``
 are copies of the reference's modules.
 """

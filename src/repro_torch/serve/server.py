@@ -11,6 +11,9 @@ and coalesces them into power-of-two padded engine launches:
               │   at low offered load
               └─► microbatch queue ─► engine-pool worker threads
                     └─► scatter-back, per-request futures + latency stamps
+    submit_update(deltas) ─► batcher barrier (flush what's pending first)
+        └─► update queue ─► single updater thread
+              └─► OnlineEngine.apply: patch + MVCC publish
 
 Admission control bounds *in-flight* requests (queued + batching +
 executing): past ``max_pending``, ``submit`` raises ``ServerOverloaded``.
@@ -25,14 +28,27 @@ worker restarts with backoff), a failed launch retries or fails only its
 own requests, and a circuit breaker routes launches to an explicit
 ``fallback`` while the primary keeps failing.
 
+**Mutation under live traffic**: constructed over a ``repro_torch.update``
+``OnlineEngine`` instead of a bare callable, the server also accepts
+``submit_update(DeltaLog)``. Updates interleave with query launches: the
+batcher flushes pending queries first (so requests submitted before an
+update are answered against the pre-update version), each flushed
+microbatch **pins** the then-current MVCC version and is answered entirely
+against that snapshot, and a single updater thread applies updates in
+submission order (publish order = consistency order). ``stats()`` adds
+update-latency percentiles and version lag (how many versions were
+published while a query batch was in flight). The breaker of an online
+server routes to a ``fault.DegradedFallback`` built from the pinned
+version's host array.
+
 **Adaptive deadline** (``ServeConfig.adaptive_deadline``): the batcher
 shrinks its coalescing deadline while launches fill up and grows it back
 toward ``deadline_max_s`` when flushes are deadline-triggered and
 near-empty. The trajectory is recorded per flush in ``ServeStats``.
 
-Port of ``repro/serve/server.py`` on its ``query_fn`` path; the online
-(MVCC update), restore and durable paths come with their slices
-(ROADMAP.md).
+Port of ``repro/serve/server.py`` on its ``query_fn`` and ``online`` paths;
+``restore=`` comes with durability, ``submit(min_version=)`` and the
+regime affinity with the fleet (ROADMAP.md queue 1, steps 10 and 12).
 """
 
 from __future__ import annotations
@@ -160,6 +176,7 @@ class RequestResult(NamedTuple):
     idx: np.ndarray  # (B,) int32 leftmost argmin per query
     val: np.ndarray  # (B,) corresponding values
     timing: RequestTiming
+    version: Optional[int] = None  # MVCC version answered against (online only)
 
 
 class _Request:
@@ -174,6 +191,15 @@ class _Request:
         self.retries = 0  # failed launches this request has survived so far
         self.span = None  # "request" root span (tracing enabled only)
         self.qspan = None  # open "queue" span: submit/requeue -> flush
+
+
+class _UpdateReq:
+    __slots__ = ("deltas", "future", "t_submit")
+
+    def __init__(self, deltas, t_submit):
+        self.deltas = deltas
+        self.future: Future = Future()
+        self.t_submit = t_submit
 
 
 class ServeStats(NamedTuple):
@@ -196,6 +222,13 @@ class ServeStats(NamedTuple):
     regime_splits: Tuple[Tuple[int, int], ...] = ()
     # Effective batcher deadline after each flush (adaptive mode only).
     deadline_trajectory: Tuple[float, ...] = ()
+    # Online-update accounting (servers built over an OnlineEngine).
+    applied_updates: int = 0
+    p50_update_s: float = 0.0  # submit_update -> published
+    p99_update_s: float = 0.0
+    # Per-query-launch version lag: versions published between a batch's
+    # pin and its completion (0 = answered against the newest version).
+    version_lags: Tuple[int, ...] = ()
     # Crash-safety accounting (supervision / retry / breaker / fallback).
     degraded_launches: int = 0  # launches served by the degraded fallback
     worker_restarts: int = 0  # crashed workers the supervisor restarted
@@ -216,6 +249,14 @@ class ServeStats(NamedTuple):
     def mixed_batches(self) -> int:
         """Launches the dispatcher actually split (both regimes non-empty)."""
         return sum(1 for s, g in self.regime_splits if s and g)
+
+    @property
+    def version_lag_max(self) -> int:
+        return max(self.version_lags) if self.version_lags else 0
+
+    @property
+    def version_lag_mean(self) -> float:
+        return float(np.mean(self.version_lags)) if self.version_lags else 0.0
 
     def summary(self) -> str:
         out = (
@@ -245,6 +286,13 @@ class ServeStats(NamedTuple):
                 f"; adaptive deadline {self.deadline_trajectory[0]*1e3:.2f} ms "
                 f"(1 adjusted flush)"
             )
+        if self.applied_updates:
+            out += (
+                f"; {self.applied_updates} updates (p50 "
+                f"{self.p50_update_s*1e3:.2f} ms, p99 {self.p99_update_s*1e3:.2f} ms), "
+                f"version lag max {self.version_lag_max} "
+                f"mean {self.version_lag_mean:.2f}"
+            )
         if (
             self.worker_restarts
             or self.retried_requests
@@ -263,13 +311,15 @@ class ServeStats(NamedTuple):
 
 
 class RMQServer:
-    """Deadline micro-batching server over one built RMQ engine."""
+    """Deadline micro-batching server over one built RMQ engine, or over an
+    ``OnlineEngine`` (``online=``) whose versions each launch pins."""
 
     def __init__(
         self,
-        query_fn: Callable,
+        query_fn: Optional[Callable] = None,
         config: Optional[ServeConfig] = None,
         *,
+        online=None,  # repro_torch.update.OnlineEngine
         warmup_bounds: Optional[Callable] = None,
         fault_plan=None,  # fault.FaultPlan (or check callable): worker_query site
         fallback: Optional[Callable] = None,  # degraded (l, r) -> (idx, val)
@@ -278,28 +328,41 @@ class RMQServer:
         trace_attrs=None,  # static attrs stamped on every launch span
         **overrides,
     ):
-        if query_fn is None:
-            raise ValueError("RMQServer needs a query_fn")
+        if (query_fn is None) == (online is None):
+            raise ValueError("pass exactly one of query_fn or online")
+        self._online = online
+        if online is not None:
+            # Warmup / direct path: answer against the then-current version.
+            def query_fn(l, r):
+                ver = online.pin()
+                try:
+                    return online.query(ver.state, l, r)
+                finally:
+                    online.release(ver.vid)
+
         self._query_fn = query_fn
         self._warmup_bounds = warmup_bounds  # (size) -> [(l, r), ...] per regime
         self._cfg = config if config is not None else ServeConfig(**overrides)
         self._inq: "queue.SimpleQueue" = queue.SimpleQueue()
         self._mbq: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._updq: "queue.SimpleQueue" = queue.SimpleQueue()
         self._lock = threading.Lock()
         self._inflight = 0
         self._closed = False
         self._started = False
         self._threads: List[threading.Thread] = []
-        # Supervision + breaker state. _live tracks every admitted request
-        # whose future is unresolved, so close() can fail leftovers instead
-        # of leaving clients hanging.
+        # Supervision + breaker state. _live tracks every admitted request /
+        # update whose future is unresolved, so close() can fail leftovers
+        # instead of leaving clients hanging.
         self._live: Set[object] = set()
         self._deaths: "queue.SimpleQueue" = queue.SimpleQueue()  # crashed worker slots
         self._fault = fault_plan.check if hasattr(fault_plan, "check") else fault_plan
         self._fallback_fn = fallback
-        if self._cfg.breaker_threshold > 0 and fallback is None:
+        self._degraded = None  # lazy fault.DegradedFallback (online servers)
+        if self._cfg.breaker_threshold > 0 and online is None and fallback is None:
             raise ValueError(
-                "breaker_threshold > 0 needs a degraded path: an explicit fallback callable"
+                "breaker_threshold > 0 needs a degraded path: an online engine "
+                "(version x_host fallback) or an explicit fallback callable"
             )
         self._brk_fails = 0  # consecutive primary-launch failures
         self._brk_open = False
@@ -314,7 +377,9 @@ class RMQServer:
         self.metrics: MetricsRegistry = metrics if metrics is not None else MetricsRegistry()
         m = self.metrics
         ta = dict(trace_attrs) if trace_attrs else {}
-        ta.setdefault("engine", getattr(query_fn, "__name__", None) or "engine")
+        ta.setdefault(
+            "engine", getattr(online, "name", None) or getattr(query_fn, "__name__", None) or "engine"
+        )
         self._trace_attrs = ta
         self._m_out = {  # request terminal outcomes
             k: m.counter("serve_requests_total", outcome=k)
@@ -328,27 +393,38 @@ class RMQServer:
         self._m_regime = {
             reg: m.counter("serve_regime_queries_total", regime=reg) for reg in ("short", "long")
         }
+        self._m_updates = {
+            k: m.counter("serve_updates_total", outcome=k) for k in ("applied", "failed")
+        }
         self._m_restarts = m.counter("serve_worker_restarts_total")
         self._m_trips = m.counter("serve_breaker_trips_total")
         self._h_queue = m.histogram("serve_queue_wait_s")
         self._h_service = m.histogram("serve_service_s")
         self._h_total = m.histogram("serve_total_s")
+        self._h_update = m.histogram("serve_update_s")
         self._h_launch = {
             pool: m.histogram("serve_launch_s", pool=pool) for pool in ("primary", "degraded")
         }
         self._g_inflight = m.gauge("serve_inflight")
         self._g_deadline = m.gauge("serve_deadline_eff_s")
+        self._g_vlag = m.gauge("serve_version_lag")
         # Structural accumulators (under _lock) — sequences/sets the scalar
         # instruments can't represent; ServeStats carries them verbatim.
         self._splits: List[Tuple[int, int]] = []  # per-launch (short, long)
         self._padded: Set[int] = set()
         self._deadlines: List[float] = []  # effective deadline per flush
+        self._lags: List[int] = []  # per-launch version lag
         self._t_first_submit: Optional[float] = None
         self._t_last_done: Optional[float] = None
 
     @property
     def config(self) -> ServeConfig:
         return self._cfg
+
+    @property
+    def online(self):
+        """The OnlineEngine this server serves (None for bare query_fn servers)."""
+        return self._online
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -366,6 +442,11 @@ class RMQServer:
         self._threads.append(
             threading.Thread(target=self._supervisor_loop, daemon=True, name="rmq-supervisor")
         )
+        if self._online is not None:
+            # ONE updater: publish order == submission order == version order.
+            self._threads.append(
+                threading.Thread(target=self._update_loop, daemon=True, name="rmq-updater")
+            )
         for t in self._threads:
             t.start()
         return self
@@ -379,9 +460,10 @@ class RMQServer:
     def close(self, timeout: Optional[float] = None):
         """Stop accepting, drain everything already admitted, join threads.
 
-        With a ``timeout``, each join waits at most that long; any request
-        future still unresolved afterwards is failed with ``ServerClosed`` —
-        a client blocked on ``future.result()`` always unblocks.
+        With a ``timeout``, each join waits at most that long; any request or
+        update future still unresolved afterwards is failed with
+        ``ServerClosed`` — a client blocked on ``future.result()`` always
+        unblocks.
         """
         with self._lock:
             if self._closed:
@@ -397,7 +479,8 @@ class RMQServer:
             self._live.clear()
             self._inflight = 0
         for q in leftovers:
-            self._trace_resolve(q, "closed")
+            if isinstance(q, _Request):
+                self._trace_resolve(q, "closed")
             self._fail_future(q, ServerClosed("server closed before the request completed"))
 
     def warmup(self, sizes: Optional[Sequence[int]] = None):
@@ -467,7 +550,10 @@ class RMQServer:
         lo, hi = int(l.min()), int(np.asarray(r, np.int64).max())
         if lo < 0 or np.any(r < l):
             raise ValueError("query bounds must satisfy 0 <= l <= r")
-        n_bound = self._cfg.n
+        # Online servers validate against the CURRENT logical length: if a
+        # client saw the post-append length, that append already published,
+        # so any version pinned later can answer it.
+        n_bound = self._online.n if self._online is not None else self._cfg.n
         if hi > _INT32_MAX or (n_bound is not None and hi >= n_bound):
             bound = n_bound if n_bound is not None else _INT32_MAX + 1
             raise ValueError(f"query upper bound {hi} outside [0, {bound})")
@@ -496,6 +582,41 @@ class RMQServer:
                 tr.instant("admission", parent=req.span, attrs={"inflight": self._inflight})
                 req.qspan = tr.start("queue", parent=req.span)
             self._inq.put(req)  # under _lock: never lands after close()'s _STOP
+        return req.future
+
+    def submit_update(self, deltas) -> Future:
+        """Enqueue one update batch (a ``repro_torch.update`` DeltaLog/DeltaBatch).
+
+        The future resolves to the ``UpdateResult`` of the published version.
+        Updates are barriers in the batcher (queries submitted before an
+        update are flushed — and version-pinned — first) and are applied in
+        submission order by the single updater thread. Shares admission
+        control with queries: a stalled updater backpressures too.
+        """
+        if self._online is None:
+            raise ValueError("submit_update() on a server without an OnlineEngine")
+        if self._closed:
+            raise ServerClosed("submit_update() on a closed server")
+        if not self._started:
+            raise ServerClosed("submit_update() before start()")
+        # Emptiness: DeltaBatch is a NamedTuple, so len() would count its
+        # *fields* (always truthy) — use the op count both types expose.
+        n_ops = getattr(deltas, "n_ops", None)
+        if not (len(deltas) if n_ops is None else n_ops):
+            raise ValueError("submit_update() with an empty delta log")
+        req = _UpdateReq(deltas, time.perf_counter())
+        with self._lock:
+            if self._closed:
+                raise ServerClosed("submit_update() on a closed server")
+            if self._inflight >= self._cfg.max_pending:
+                self._m_out["rejected"].inc()
+                raise ServerOverloaded(
+                    f"{self._inflight} requests in flight (max_pending={self._cfg.max_pending})"
+                )
+            self._inflight += 1
+            self._g_inflight.set(self._inflight)
+            self._live.add(req)
+            self._inq.put(req)
         return req.future
 
     # -- internals ----------------------------------------------------------
@@ -559,7 +680,13 @@ class RMQServer:
                     if q.qspan is not None:
                         tr.finish(q.qspan)
                         q.qspan = None
-            self._mbq.put((mb, pending, fs))
+            # Snapshot isolation: the whole launch is answered against the
+            # version current at flush time, however long it sits in the
+            # microbatch queue and whatever publishes meanwhile.
+            ver = self._online.pin() if self._online is not None else None
+            if fs is not None and ver is not None:
+                fs.attrs["version"] = ver.vid
+            self._mbq.put((mb, pending, ver, fs))
             if cfg.adaptive_deadline:
                 if reason == "full":  # sustained load: waiting only adds latency
                     eff = max(dmin, eff / 2)
@@ -587,7 +714,16 @@ class RMQServer:
                     flush("stop")
                 for _ in range(cfg.workers):
                     self._mbq.put(_STOP)
+                self._updq.put(_STOP)  # updater (if any) drains, then exits
                 return
+            if isinstance(item, _UpdateReq):
+                # Update barrier: requests already pending were submitted
+                # before the update, so they flush (and pin) first; the
+                # single updater then applies in submission order.
+                if pending:
+                    flush("barrier")
+                self._updq.put(item)
+                continue
             if item is not None:
                 # A request that would overflow the launch flushes what's
                 # pending first, so a batch never exceeds max_batch queries.
@@ -619,30 +755,32 @@ class RMQServer:
             item = self._mbq.get()
             if item is _STOP:
                 return
-            mb, reqs, fs = item
+            mb, reqs, ver, fs = item
             try:
-                parts, splits, degraded = self._launch(mb, fs)
+                parts, splits, degraded = self._launch(mb, ver, fs)
             except BaseException as e:
                 # Failed launch: its requests retry or fail — never the whole
                 # server. An injected crash additionally kills this worker
                 # thread (after the batch is requeued) to exercise the
                 # supervisor's restart path.
-                self._requeue_or_fail(mb, reqs, fs, e)
+                self._requeue_or_fail(mb, reqs, ver, fs, e)
                 if isinstance(e, InjectedFault) and e.kind == "crash":
                     raise
                 continue
-            self._finish(mb, reqs, fs, parts, splits, degraded)
+            self._finish(mb, reqs, ver, fs, parts, splits, degraded)
 
-    def _launch_span(self, fs, mb: MicroBatch, pool: str):
+    def _launch_span(self, fs, ver, mb: MicroBatch, pool: str):
         """Context manager for one engine launch span under flush span ``fs``
         (the worker thread — cross-thread, so the parent is explicit)."""
         attrs = dict(self._trace_attrs)
         attrs["pool"] = pool
+        if ver is not None:
+            attrs["version"] = ver.vid
         attrs["padded"] = mb.padded_size
         attrs["queries"] = int(mb.n_queries)
         return self._tracer.span("launch", parent=fs, attrs=attrs)
 
-    def _launch(self, mb: MicroBatch, fs=None):
+    def _launch(self, mb: MicroBatch, ver, fs=None):
         """One engine launch -> (per-request parts, regime splits, degraded?).
 
         Routes to the degraded fallback while the breaker is open; otherwise
@@ -651,7 +789,7 @@ class RMQServer:
         ``scatter_back``, so the launch time includes the device's work.
         """
         if self._use_degraded():
-            return self._launch_degraded(mb, fs)
+            return self._launch_degraded(mb, ver, fs)
         tr = self._tracer
         self._m_launches["primary"].inc()
         try:
@@ -662,11 +800,14 @@ class RMQServer:
             lsp = None
             t0 = time.perf_counter()
             with _hybrid.record_splits(lambda s, g: splits.append((s, g))):
-                cm = self._launch_span(fs, mb, "primary") if tr.enabled else tr.span("launch")
+                cm = self._launch_span(fs, ver, mb, "primary") if tr.enabled else tr.span("launch")
                 with cm as lsp:
                     if self._fault is not None:
                         self._fault("worker_query")
-                    idx, val = self._query_fn(mb.l, mb.r)
+                    if ver is not None:
+                        idx, val = self._online.query(ver.state, mb.l, mb.r)
+                    else:
+                        idx, val = self._query_fn(mb.l, mb.r)
             # The coalesced launch is power-of-two padded with trivial
             # (0, 0) queries; the dispatcher routes ALL pads to one side
             # (short when threshold >= 1, else long — real queries never
@@ -686,14 +827,23 @@ class RMQServer:
         self._breaker_success()
         return parts, splits, False
 
-    def _launch_degraded(self, mb: MicroBatch, fs=None):
-        """Answer via the correct-but-slower fallback path (breaker open)."""
+    def _launch_degraded(self, mb: MicroBatch, ver, fs=None):
+        """Answer via the correct-but-slower fallback path (breaker open):
+        an online server's answers come from a plain sparse table over its
+        pinned version's host array."""
         tr = self._tracer
         self._m_launches["degraded"].inc()
         t0 = time.perf_counter()
-        cm = self._launch_span(fs, mb, "degraded") if tr.enabled else tr.span("launch")
+        cm = self._launch_span(fs, ver, mb, "degraded") if tr.enabled else tr.span("launch")
         with cm:
-            idx, val = self._fallback_fn(mb.l, mb.r)
+            if self._online is not None:
+                if self._degraded is None:
+                    from repro_torch.fault.fallback import DegradedFallback
+
+                    self._degraded = DegradedFallback(device=self._online.device)
+                idx, val = self._degraded.query(ver, mb.l, mb.r)
+            else:
+                idx, val = self._fallback_fn(mb.l, mb.r)
         with tr.span("scatter", parent=fs):
             parts = scatter_back(mb, idx, val)
         self._h_launch["degraded"].observe(time.perf_counter() - t0)
@@ -737,7 +887,15 @@ class RMQServer:
             zeros = np.zeros(1, np.int32)
             if self._fault is not None:
                 self._fault("worker_query")
-            scatter_back(coalesce([zeros], [zeros]), *self._query_fn(zeros, zeros))
+            if self._online is not None:
+                ver = self._online.pin()
+                try:
+                    out = self._online.query(ver.state, zeros, zeros)
+                    scatter_back(coalesce([zeros], [zeros]), *out)
+                finally:
+                    self._online.release(ver.vid)
+            else:
+                scatter_back(coalesce([zeros], [zeros]), *self._query_fn(zeros, zeros))
             return True
         except BaseException:
             return False
@@ -760,15 +918,17 @@ class RMQServer:
 
     # -- launch outcome plumbing ----------------------------------------------
 
-    def _requeue_or_fail(self, mb: MicroBatch, reqs, fs, err: BaseException):
+    def _requeue_or_fail(self, mb: MicroBatch, reqs, ver, fs, err: BaseException):
         """Split a failed batch's requests into automatic retries and failures.
 
         A request retries while it has retry budget left, hasn't blown its
         ``request_timeout_s`` deadline, and the server is still open; retried
-        requests re-enter the batcher (fresh coalescing). The rest fail with
-        a typed ``EngineFailure`` carrying the cause.
+        requests re-enter the batcher (fresh coalescing, fresh version pin).
+        The rest fail with a typed ``EngineFailure`` carrying the cause.
         """
         tr = self._tracer
+        if ver is not None:
+            self._online.release(ver.vid)
         if fs is not None:
             fs.set_attr("error", type(err).__name__)
             tr.finish(fs)
@@ -815,10 +975,16 @@ class RMQServer:
             self._trace_resolve(q, "failed")
             self._fail_future(q, exc)
 
-    def _finish(self, mb: MicroBatch, reqs, fs, parts, splits, degraded: bool):
+    def _finish(self, mb: MicroBatch, reqs, ver, fs, parts, splits, degraded: bool):
         tr = self._tracer
         t_done = time.perf_counter()
+        lag = 0
+        if ver is not None:
+            lag = self._online.current_vid - ver.vid
+            self._online.release(ver.vid)
         if fs is not None:
+            if ver is not None:
+                fs.set_attr("lag", lag)
             tr.finish(fs)
         with self._lock:
             self._inflight -= len(reqs)
@@ -827,6 +993,9 @@ class RMQServer:
             self._padded.add(mb.padded_size)
             for q in reqs:
                 self._live.discard(q)
+            if ver is not None:
+                self._lags.append(lag)
+                self._g_vlag.set(lag)
             self._t_last_done = t_done
         self._m_batches.inc()
         self._m_queries.inc(int(mb.n_queries))
@@ -847,6 +1016,7 @@ class RMQServer:
                         RequestTiming(
                             q.t_flush - q.t_submit, t_done - q.t_flush, t_done - q.t_submit
                         ),
+                        ver.vid if ver is not None else None,
                     )
                 )
             except Exception:
@@ -897,16 +1067,58 @@ class RMQServer:
                 self._threads.append(t)
             t.start()
 
+    def _update_loop(self):
+        """The single updater: applies update batches in submission order."""
+        tr = self._tracer
+        while True:
+            item = self._updq.get()
+            if item is _STOP:
+                return
+            try:
+                # The update root span: OnlineEngine.apply's coalesce span
+                # and the apply_deltas/publish stage spans (via run_stages)
+                # nest under it ambiently — same thread, same context.
+                if tr.enabled:
+                    cm = tr.span("update", parent=0, attrs={"queue_s": time.perf_counter() - item.t_submit})
+                else:
+                    cm = tr.span("update")
+                with cm as us:
+                    res = self._online.apply(item.deltas)
+                    us.set_attr("version", getattr(res, "version", None))
+            except BaseException as e:
+                # Malformed batches are rejected with the engine untouched;
+                # a mid-patch failure fail-stops the OnlineEngine (later
+                # applies raise) while queries keep serving published
+                # versions. Either way, fail this future and keep going.
+                with self._lock:
+                    self._inflight -= 1
+                    self._g_inflight.set(self._inflight)
+                    self._live.discard(item)
+                self._m_updates["failed"].inc()
+                self._fail_future(item, e)
+                continue
+            with self._lock:
+                self._inflight -= 1
+                self._g_inflight.set(self._inflight)
+                self._live.discard(item)
+            self._m_updates["applied"].inc()
+            self._h_update.observe(time.perf_counter() - item.t_submit)
+            try:
+                item.future.set_result(res)
+            except Exception:
+                pass  # already failed (server closed under us)
+
     def stats(self) -> ServeStats:
         """Render the ServeStats snapshot FROM the metrics registry.
 
         The NamedTuple is a *view*: every scalar comes from a registry
         instrument (so registry totals and ServeStats reconcile exactly, by
         construction) and the percentiles come from the histogram
-        reservoirs. Only structural sequences (splits, padded shapes,
+        reservoirs. Only structural sequences (splits, lags, padded shapes,
         deadline trajectory) live outside the registry.
         """
         with self._lock:
+            lags = tuple(self._lags)
             splits = tuple(self._splits)
             padded = tuple(sorted(self._padded))
             deadlines = tuple(self._deadlines)
@@ -917,6 +1129,7 @@ class RMQServer:
         span = t1 - t0 if nreq and t0 is not None and t1 is not None else 0.0
         q50, q99 = self._h_queue.percentiles((50, 99))
         t50, t99 = self._h_total.percentiles((50, 99))
+        u50, u99 = self._h_update.percentiles((50, 99))
         return ServeStats(
             served_requests=nreq,
             served_queries=nq,
@@ -932,6 +1145,10 @@ class RMQServer:
             throughput_qps=nq / span if span > 0 else 0.0,
             regime_splits=splits,
             deadline_trajectory=deadlines,
+            applied_updates=self._h_update.count,
+            p50_update_s=u50,
+            p99_update_s=u99,
+            version_lags=lags,
             degraded_launches=int(self._m_launches["degraded"].value),
             worker_restarts=int(self._m_restarts.value),
             retried_requests=int(self._m_out["retried"].value),

@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import update
 from repro_torch.core import block_rmq, lane_rmq, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
-from repro_torch.kernels.edge_batch import edge_batch
+from repro_torch.kernels.edge_batch import edge_batch, maxval_only
 from repro_torch.kernels.fused_query import (
     fused_query,
     fused_query_packed,
@@ -227,6 +228,58 @@ def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
         lane_partials(shifted.view(ls_.xs.shape), *planes[1:], *largs)
 
 
+def _oracle_on_maxval_only(idx, x, l, r, what):
+    """``idx`` equals the oracle on every query of ``(l, r)`` whose range
+    holds only maxval; returns how many there were."""
+    torch.cuda.synchronize()
+    l, r = (a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in (l, r))
+    carve = maxval_only(x, l, r)
+    np.testing.assert_array_equal(
+        idx.cpu().numpy()[carve], ref.rmq_ref(x, l[carve], r[carve]), err_msg=what
+    )
+    return int(carve.sum())
+
+
+@pytest.mark.parametrize("bs", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_edge_batch_maxval_only_ranges_on_card(cuda, dtype, bs):
+    """The repaired kernels (fused_query both fetches, quantized
+    fused_query_packed, rmq_partials, lane_partials) answer every
+    maxval-only range of ``edge_batch`` with the oracle's index, its first
+    one, on the card, tiles 1 and 8 (kernel equal to plain cannot show
+    this: both were wrong together). lane_partials also takes same-block
+    queries inside the maxval blocks."""
+    x, l, r = edge_batch(bs, dtype, 4099)
+    lt, rt = torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda)
+    s = ops.build(x, bs, device=cuda)
+    args = (s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lt, rt)
+    seen = 0
+    for tile in (1, 8):
+        for fetch in ("resident", "dma"):
+            idx, _ = fused_query(*args, st_val=s.st_val, st_gidx=s.st_gidx, fetch=fetch, tile=tile)
+            seen += _oracle_on_maxval_only(idx, x, l, r, f"fused_query {fetch}")
+        bl, br = lt // bs, rt // bs
+        ls, re = lt - bl * bs, rt - br * bs
+        _, idx = rmq_partials(s.x_blocks, bl, br, ls, torch.where(bl == br, re, bs - 1), re, tile=tile)
+        seen += _oracle_on_maxval_only(idx, x, l, r, "rmq_partials")
+        if dtype == "int32":  # finite float data holds no +inf
+            q, spec = ops.build_packed(x, bs, layout="quantized", device=cuda)
+            idx, _ = fused_query_packed(q.blocks, q.stw, lt, rt, spec=spec, bmin_val=q.bmin_val, tile=tile)
+            seen += _oracle_on_maxval_only(idx, x, l, r, "quantized")
+        ls_ = lane_rmq.build(x, device=cuda)
+        planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
+        rng = np.random.default_rng(bs)
+        blk = rng.integers(2 * bs // 128, 6 * bs // 128, 64)  # rows of the maxval blocks
+        a, c = rng.integers(0, 128, 64), rng.integers(0, 128, 64)
+        inside = (blk * 128 + np.minimum(a, c), blk * 128 + np.maximum(a, c))
+        for lq, rq in ((l, r), inside):
+            sl, sr = lq // 128, rq // 128
+            largs = [torch.from_numpy(q.astype(np.int32)).to(cuda) for q in (sl, sr, lq - sl * 128, rq - sr * 128)]
+            _, idx = lane_partials(*planes, *largs, tile=tile)
+            seen += _oracle_on_maxval_only(idx, x, lq, rq, "lane_partials")
+    assert seen > 0
+
+
 @pytest.mark.parametrize("last", ["same", "straddle"])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 def test_lane_partials_same_block_warp_on_card(cuda, dtype, last):
@@ -256,3 +309,44 @@ def test_lane_partials_same_block_warp_on_card(cuda, dtype, last):
     for tile in (1, 8):
         _same_bits(lane_partials(*planes, *args, tile=tile), want)
     np.testing.assert_array_equal(want[1].cpu().numpy()[:32], ref.rmq_ref(x, l, r)[:32])
+
+
+def test_online_hybrid_on_card(cuda):
+    """An online hybrid on the card: a point write and an append, each
+    answered as the oracle of the mutated array; a version pinned before
+    them keeps answering from its own tensors (copy-on-write on the
+    device); no kernel launches (the reference pins the plain short path
+    online); the final state equals a from-scratch build leaf for leaf."""
+    rng = np.random.default_rng(16)
+    n = 5000
+    x = rng.integers(0, 50, n).astype(np.float32)
+    online = update.make_online("hybrid", x, device=cuda, threshold=300)
+    ver0 = online.pin()
+    l, r = _queries(rng, n, 300)
+    launches = fused_query.launches + block_min.launches
+    xm = x.copy()
+    for log in (update.DeltaLog().point(1234, -1.0), update.DeltaLog().append(np.full(300, -2.0, np.float32))):
+        res = online.apply(log)
+        assert res.patched and res.publish_bytes > 0
+        xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+        lq, rq = _queries(rng, xm.shape[0], 300)
+        ver = online.pin()
+        idx, val = online.query(ver.state, lq, rq)
+        online.release(ver.vid)
+        gold = ref.rmq_ref(xm, lq, rq)
+        assert idx.device.type == cuda.type and idx.dtype == torch.int32
+        np.testing.assert_array_equal(idx.cpu().numpy(), gold)
+        np.testing.assert_array_equal(val.cpu().numpy(), xm[gold])
+    idx0, val0 = online.query(ver0.state, l, r)
+    np.testing.assert_array_equal(idx0.cpu().numpy(), ref.rmq_ref(x, l, r))
+    online.release(ver0.vid)
+    assert fused_query.launches + block_min.launches == launches
+    plan = update.engines.build_mod.plan_for(
+        "hybrid", xm.shape[0], device=cuda, threshold=300, use_kernels=False
+    )
+    fresh = update.engines.build_mod.execute(plan, xm)
+    got = online.store.current.state
+    for a, b in ((fresh.blocked.x_blocks, got.blocked.x_blocks), (fresh.blocked.bmin_val, got.blocked.bmin_val),
+                 (fresh.blocked.bmin_gidx, got.blocked.bmin_gidx), (fresh.blocked.st.idx, got.blocked.st.idx),
+                 (fresh.st.idx, got.st.idx), (fresh.x, got.x)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)

@@ -7,11 +7,11 @@ equal and int32, values equal bit for bit and of x's dtype. ``LCARMQ`` is
 compared with the reference's leaf for leaf, dtypes included. Tolerance:
 exact.
 
-Also pinned here: the maxval-only fault that the port shares with the
-reference (ROADMAP.md §3): on a range whose every element is the dtype's
-maximum, the blocked engines and ``exhaustive`` answer with an index
-outside the range. The port equals the reference engine for engine on
-that input (passes), and does not yet equal the oracle (strict xfail).
+Also pinned here: the maxval-only fault of the reference that the port
+repairs (ROADMAP.md §3): on a range whose every element is the dtype's
+maximum, the reference's blocked engines and ``exhaustive`` answer with an
+index outside the range. The port answers the oracle there, and the tests
+assert that the reference still does not (a deliberate divergence).
 """
 
 import jax.numpy as jnp
@@ -19,10 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import build as jax_build
 from repro.core import lca as jax_lca
 from repro.core import ref
 from repro.core import registry as jax_registry
-from repro_torch.core import exhaustive, lca, registry
+from repro_torch.core import build, exhaustive, lca, registry
 from torch_parity_util import assert_same_answer, assert_same_structure, to_np
 
 BASELINES = ["lca", "exhaustive"]
@@ -133,21 +134,27 @@ MAXVAL_CASES = {
 }
 MAXVAL_L = np.array([1, 2, 1])
 MAXVAL_R = np.array([2, 2, 1])
-# Engines whose masked lanes carry maxval and win the tie: index 0.
+# Engines whose masked lanes carry maxval and win the tie in the reference:
+# index 0.
 MAXVAL_FAULTY = ["block128", "block256", "lane", "exhaustive", "fused128", "fused128_dma", "hybrid"]
 
 
 @pytest.mark.parametrize("dtype", sorted(MAXVAL_CASES))
 @pytest.mark.parametrize("engine", registry.names())
 def test_maxval_only_range_matches_reference(engine, dtype):
+    """The port answers the oracle on the maxval-only ranges. The reference
+    does too, except on the engines of ``MAXVAL_FAULTY``, where it still
+    answers index 0, outside every range: the port's repair is a deliberate
+    divergence, and this fails if the reference changes."""
     x = MAXVAL_CASES[dtype]
+    gold = ref.rmq_ref(x, MAXVAL_L, MAXVAL_R).astype(np.int32)
     want, got = _both(engine, x, MAXVAL_L, MAXVAL_R)
-    assert_same_answer(want, got, x=x)
+    if engine in MAXVAL_FAULTY:
+        np.testing.assert_array_equal(to_np(want[0]), [0, 0, 0])
+        want = (gold, x[gold])
+    assert_same_answer(want, got, x=x, gold=gold)
 
 
-@pytest.mark.xfail(
-    strict=True, reason="maxval-only ranges answer outside [l, r], as in the reference (ROADMAP.md §3)"
-)
 @pytest.mark.parametrize("dtype", sorted(MAXVAL_CASES))
 @pytest.mark.parametrize("engine", MAXVAL_FAULTY)
 def test_maxval_only_range_matches_oracle(engine, dtype):
@@ -155,3 +162,27 @@ def test_maxval_only_range_matches_oracle(engine, dtype):
     peng = registry.get(engine)
     idx, _ = peng.query(peng.build(x, device="cpu"), MAXVAL_L, MAXVAL_R)
     np.testing.assert_array_equal(to_np(idx), ref.rmq_ref(x, MAXVAL_L, MAXVAL_R))
+
+
+@pytest.mark.parametrize("threshold", [1, 3])
+def test_maxval_only_range_quantized_packed_hybrid(threshold):
+    """Quantized ``packed_hybrid`` on the int32 input (finite, so the layout
+    accepts it): its raw-value partials go through the repaired masked min.
+    The port answers the oracle. The reference's short path (ranges of at
+    most ``threshold`` elements) still answers index 0; its long path, the
+    packed table, is right."""
+    x = MAXVAL_CASES["int32"]
+    gold = ref.rmq_ref(x, MAXVAL_L, MAXVAL_R).astype(np.int32)
+    jeng = jax_registry.get("packed_hybrid")
+    jstate = jax_build.build(
+        "hybrid", jnp.asarray(x), block_size=128, packed="quantized", threshold=threshold
+    )
+    want = jeng.query(jstate, jnp.asarray(MAXVAL_L), jnp.asarray(MAXVAL_R))
+    short = MAXVAL_R - MAXVAL_L + 1 <= threshold
+    np.testing.assert_array_equal(to_np(want[0]), np.where(short, 0, gold))
+    state = build.build(
+        "hybrid", x, device="cpu", block_size=128, packed="quantized", threshold=threshold
+    )
+    assert state.spec.layout == "quantized"
+    got = registry.get("packed_hybrid").query(state, MAXVAL_L, MAXVAL_R)
+    assert_same_answer((gold, x[gold]), got, x=x, gold=gold)

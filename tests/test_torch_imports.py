@@ -43,7 +43,15 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for mod in ("repro_torch.launch.serve", "repro_torch.serve.server", "repro_torch.kernels._build", "repro_torch.convert"):
+    for mod in (
+        "repro_torch.launch.serve",
+        "repro_torch.serve.server",
+        "repro_torch.kernels._build",
+        "repro_torch.convert",
+        "repro_torch.update.engines",
+        "repro_torch.update.patch",
+        "repro_torch.fault.fallback",
+    ):
         assert mod in res["imported"]
 
 

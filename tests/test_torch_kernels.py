@@ -31,7 +31,7 @@ from repro.kernels.rmq_query import rmq_partials as jax_rmq_partials
 from repro_torch.core import block_rmq, lane_rmq, sparse_table
 from repro_torch.kernels import _build, ops, tuning
 from repro_torch.kernels.block_min import block_min
-from repro_torch.kernels.edge_batch import edge_batch
+from repro_torch.kernels.edge_batch import edge_batch, maxval_only
 from repro_torch.kernels.fused_query import fused_query, fused_query_packed, fused_query_packed_plain
 from repro_torch.kernels.lane_query import lane_partials
 from repro_torch.kernels.ref import block_min_ref, rmq_partials_ref
@@ -359,9 +359,12 @@ def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
     4j, 4j+3 and mid-piece; minima tied across rows, neighbouring lanes and
     pieces; zeros of both signs; maxval minima; bucket collisions): same
     bits, -0.0 included. packed32 takes the batch's small-span values (its
-    key span must fit the word) and both fetches. Where the minimum is not
-    the padding value the answer is the oracle's (a maxval range resolves to
-    the leftmost masked lane, as in the reference)."""
+    key span must fit the word) and both fetches. Every answer is the
+    oracle's. The carve-out: a query whose range holds only maxval is held
+    to the oracle instead of Pallas, which answers some of them with a
+    masked lane left of the range (ROADMAP.md §3, a deliberate divergence);
+    the test asserts that Pallas still does, so it fails if the reference
+    changes."""
     x, l, r = edge_batch(
         bs, dtype, b, finite=kernel == "quantized", small_span=kernel == "packed32"
     )
@@ -374,16 +377,17 @@ def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
         jplanes = (js.xs, js.suff_val, js.suff_idx, js.pref_val, js.pref_idx)
         want = jax_lane_partials(*jplanes, *map(jnp.asarray, args), tile=8, interpret=True)
         planes = (ps.xs, ps.suff_val, ps.suff_idx, ps.pref_val, ps.pref_idx)
-        _assert_bits(want, lane_partials(*planes, *args))
-        return
+        # lane_partials returns (val, idx); the check takes (idx, val).
+        got = lane_partials(*planes, *args)
+        return _check_edge(x, l, r, want[::-1], got[::-1], unit=128, lane=True, final=False)
     if kernel == "rmq_partials":
         xb = block_rmq.pad_blocks(torch.from_numpy(x), bs)
         bl, br = l // bs, r // bs
         ls, re = l - bl * bs, r - br * bs
         args = [a.astype(np.int32) for a in (bl, br, ls, np.where(bl == br, re, bs - 1), re)]
         want = jax_rmq_partials(jnp.asarray(to_np(xb)), *map(jnp.asarray, args), tile=8, interpret=True)
-        _assert_bits(want, rmq_partials(xb, *args, tile=8))
-        return
+        got = rmq_partials(xb, *args, tile=8)
+        return _check_edge(x, l, r, want[::-1], got[::-1], unit=bs, final=False)
     if kernel == "packed32":
         js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout="packed32")
         ps, spec = ops.build_packed(x, bs, layout="packed32", device="cpu")
@@ -393,8 +397,9 @@ def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
                 js.blocks, js.stw, jl, jr, spec=jspec, tile=8, fetch=fetch, interpret=True
             )
             got = fused_query_packed(ps.blocks, ps.stw, l, r, spec=spec, fetch=fetch)
-            _assert_bits(want, got)
-    elif kernel == "quantized":
+            _check_edge(x, l, r, want, got)  # small-span values: no maxval range
+        return
+    if kernel == "quantized":
         js, jspec = jax_ops.build_packed(jnp.asarray(x), bs, layout="quantized")
         ps, spec = ops.build_packed(x, bs, layout="quantized", device="cpu")
         want = jax_fused_query_packed(
@@ -413,10 +418,33 @@ def test_edge_batch_matches_pallas(kernel, dtype, bs, b):
             ps.x_blocks, ps.bmin_val, ps.bmin_gidx, ps.st.idx, l, r,
             st_val=ps.st_val, st_gidx=ps.st_gidx, fetch=kernel,
         )
-    _assert_bits(want, got)
+    _check_edge(x, l, r, want, got, unit=bs)
+
+
+def _check_edge(x, l, r, want, got, *, unit=None, lane=False, final=True):
+    """``got`` (idx, val) bit-identical to the Pallas kernel's ``want`` on
+    every query of ``edge_batch`` but the maxval-only ones, which answer the
+    oracle's index and value. Pallas answers such a query outside its range
+    exactly where a masked lane lies left of it in the row it scans: the
+    range starts past its row's first lane (``unit`` is the row width:
+    ``bs``, or 128 for the lane kernel, where only a query inside one row
+    scans one: ``lane``). ``final``: the output is the whole query's answer, so every
+    index is the oracle's (the partial kernels leave the interior out)."""
     gold = ref.rmq_ref(x, l, r)
-    real = x[gold] != np.max(x)
-    np.testing.assert_array_equal(to_np(got[0])[real], gold[real])
+    carve = maxval_only(x, l, r)
+    _assert_bits([np.asarray(a)[~carve] for a in want], [to_np(a)[~carve] for a in got])
+    gi, gv = to_np(got[0]), to_np(got[1])
+    assert gi.dtype == np.int32 and gv.dtype == x.dtype
+    np.testing.assert_array_equal(gi[carve], gold[carve])
+    np.testing.assert_array_equal(gv[carve].view(np.int32), x[gold[carve]].view(np.int32))
+    wi = np.asarray(want[0])
+    faulty = carve & ((wi < l) | (wi > r))
+    expect = carve & (l % unit != 0) if unit else np.zeros_like(carve)
+    if lane:
+        expect &= l // unit == r // unit
+    np.testing.assert_array_equal(faulty, expect)
+    if final:
+        np.testing.assert_array_equal(gi, gold)
 
 
 @pytest.mark.parametrize("fetch", ["resident", "dma"])

@@ -19,8 +19,8 @@ Rows, one batch of B = 4096 queries with lengths uniform in [1, 8192]
 (``chip_smoke._queries``) unless named otherwise, tile 8 unless named:
 - float32: ``fused_query`` resident and dma at n = 2^20 and n = 2^26,
   quantized ``fused_query_packed``, ``rmq_partials`` and ``lane_partials``
-  at n = 2^26; ``fused_query`` dma at n = 2^26 also for one query (B = 1)
-  and at tiles 4, 16 and 32; ``lane_partials`` also for lengths uniform in
+  at n = 2^26; ``fused_query`` dma at n = 2^26 also for the first 1, 64
+  and 512 queries of the batch and at tiles 4, 16 and 32; ``lane_partials`` also for lengths uniform in
   [1, 128] (about half inside one lane block), for one query, at tiles 1
   and 4, and for a batch whose every query lies inside one lane block
   (blocks uniform, both ends uniform in the block) at tiles 8 and 1;
@@ -182,17 +182,19 @@ def main(argv=None) -> int:
             )
         if n != cs.N_MAIN:
             continue
-        # What the batch's width costs: one query alone, and other tiles.
-        l1, r1 = lt[:1], rt[:1]
-        rows["fused_query[dma] n=2^26 B=1"] = cs.kernel_times(
-            torch,
-            lambda: fused_query(
-                s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, l1, r1,
-                st_val=s.st_val, st_gidx=s.st_gidx, fetch="dma",
-            ),
-            "fused_query_kernel",
-            flush,
-        )
+        # What the batch's width costs: one query alone, narrower batches,
+        # and other tiles.
+        for b in (1, 64, 512):
+            lb, rb = lt[:b], rt[:b]
+            rows[f"fused_query[dma] n=2^26 B={b}"] = cs.kernel_times(
+                torch,
+                lambda: fused_query(
+                    s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx, lb, rb,
+                    st_val=s.st_val, st_gidx=s.st_gidx, fetch="dma",
+                ),
+                "fused_query_kernel",
+                flush,
+            )
         for tile in (4, 16, 32):
             rows[f"fused_query[dma] n=2^26 tile={tile}"] = cs.kernel_times(
                 torch,
