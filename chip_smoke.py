@@ -8,6 +8,7 @@ CUDA toolkit:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and nvcc versions,
+   the checkout's filesystem (``df -T`` type, ``os.statvfs`` free bytes),
    and the build of the CUDA kernels from ``src/repro_torch/csrc``;
 2. ``block_min`` kernel vs its plain PyTorch version at nb = 2^19 rows,
    bs in {128, 256}, float32 and tie-heavy int32: values and lanes equal;
@@ -87,6 +88,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    after every update, a version pinned before them answering from its own
    tensors, and the final state equal to a from-scratch build on the card
    leaf for leaf, dtypes included;
+7c. durability, under ``build/durable/`` (removed at the end; it fails
+   unless the filesystem holds the two checkpoints of (a)). (a) Through the
+   library at n = 2^26 float32 (seed 0), ``hybrid`` (threshold
+   ``ONLINE_THRESHOLD``) on the card: ``DurableEngine.create`` (the base
+   checkpoint), two write batches of phase 7b's mutator (seed 77), a
+   ``checkpoint()`` while 4 clients send `small` requests through an
+   ``RMQServer`` over the durable engine, one more write batch and an
+   append (the journal suffix), host copies of the live leaves, then a
+   crash (``close()``, the engine dropped) and ``DurableEngine.restore``:
+   2 records replayed, the same version and seq, every leaf bit-identical
+   to the live copy and equal to a from-scratch ``make_online`` of the
+   oracle array, and ``RMQServer(restore=...)`` answering 4 x 32 x 256
+   `small` queries as the oracle; the build, each checkpoint's seconds and
+   bytes on disk, each journal append (its fsync) beside the batch's apply,
+   the restore split into load, upload and replay, request p50/p99 during
+   the checkpoint, and the peak device memory. (b) ``--engine hybrid --mode
+   async --mutate 4 --restore DIR --n 2^20`` twice on one DIR: the second
+   run prints the restore line (version 4, seq 4, 4 records replayed) and
+   goes on at versions 5-8; both verify every request. (c) ``--chaos 7 --n
+   2^20`` for each updatable engine: every report ``[OK]``, with at least
+   one recovered apply failure and one failed checkpoint. No kernel is
+   launched (the durable engines wrap the online ones);
 8. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -104,13 +127,16 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -123,6 +149,33 @@ EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
 # (n^0.3 = 222), so the online hybrid's blocked path and its sparse table
 # each take part of every launch.
 ONLINE_THRESHOLD = 224
+
+
+def _disk_free(path) -> int:
+    """Prints the filesystem under ``path`` (``df -T``) and its free bytes
+    (``os.statvfs``); returns the free bytes."""
+    st = os.statvfs(path)
+    free = st.f_bavail * st.f_frsize
+    df = subprocess.run(["df", "-T", str(path)], capture_output=True, text=True)
+    fs = " ".join(df.stdout.strip().splitlines()[-1].split()) if df.returncode == 0 else df.stderr.strip()
+    print(f"[disk] {path}: {free} bytes free (statvfs); df -T: {fs}")
+    return free
+
+
+def _hybrid_snapshot_bytes(n: int, bs: int = 128) -> int:
+    """The leaves of an online hybrid's checkpoint at n float32 values: x,
+    the full-array table (floor(log2 n) + 1 levels), and the blocked
+    leaves (values, block minima and their indices, the block table)."""
+    nb = -(-n // bs)
+    return 4 * (n + n.bit_length() * n + nb * bs + 2 * nb + nb.bit_length() * nb)
+
+
+def _chaos_faults(summary: str) -> tuple:
+    """(injected apply failures, recoveries, failed checkpoints) of a chaos
+    soak's summary line."""
+    m = re.search(r"\((\d+) injected apply failures -> (\d+) recoveries\), (\d+) failed checkpoints", summary)
+    _require(m is not None, f"not a chaos summary: {summary}")
+    return tuple(int(g) for g in m.groups())
 
 
 def _card_line() -> str:
@@ -368,7 +421,9 @@ def _main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 1
 
+    from repro_torch import checkpoint as ckpt_mod
     from repro_torch import update
+    from repro_torch.checkpoint.store import _flatten
     from repro_torch.core import build as build_mod
     from repro_torch.core import calib_cache, hybrid, lane_rmq, ref, registry
     from repro_torch.kernels import _build, ops, tuning
@@ -382,8 +437,11 @@ def _main() -> int:
     )
     from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
     from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
+    from repro_torch.fault import DurableEngine
     from repro_torch.launch import serve
-    from repro_torch.serve.workload import make_queries
+    from repro_torch.obs import Tracer, set_tracer
+    from repro_torch.serve import RMQServer, ServeConfig
+    from repro_torch.serve.workload import make_queries, run_poisson_clients
 
     # --- phase 1: card, versions, kernel build ------------------------------
     card = _card_line()
@@ -393,6 +451,7 @@ def _main() -> int:
         f"[versions] torch {torch.__version__} (CUDA {torch.version.cuda}); "
         f"nvcc {nvcc.stdout.strip().splitlines()[-1]}; device {torch.cuda.get_device_name(0)}"
     )
+    _disk_free(root)
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
@@ -1149,6 +1208,223 @@ def _main() -> int:
                   f"{len(got)} leaves equal to a from-scratch build")
 
     drive("online engines 2^20 (library)", online_library, none=True)
+
+    # --- phase 7c: durability -----------------------------------------------
+    durable_dir = root / "build" / "durable"
+    shutil.rmtree(durable_dir, ignore_errors=True)
+    durable_dir.mkdir(parents=True)
+
+    def tensor_leaves(state):
+        return [(k, t) for k, t in _flatten(state) if isinstance(t, torch.Tensor)]
+
+    def pcts(xs):
+        return " ".join(f"{q} {np.percentile(xs, p) * 1e3:.2f} ms" for q, p in (("p50", 50), ("p99", 99))) if xs else "none"
+
+    def check_all(label, x, answered):
+        """``check`` over many requests' ``(l, r, idx, val)`` at once (one
+        pass of its maxval count over x, not one per request)."""
+        l, r, idx, val = (np.concatenate(a) for a in zip(*answered))
+        check(label, x, l, r, torch.from_numpy(idx), torch.from_numpy(val))
+
+    def on_disk(step_dir: Path) -> int:
+        return sum(f.stat().st_size for f in step_dir.iterdir())
+
+    def durable_library():
+        """(a): n = 2^26 through ``DurableEngine``: create, two write batches,
+        a checkpoint under reader traffic, a write batch and an append, a
+        crash, a restore; leaves, oracle and ``RMQServer(restore=)``."""
+        lib = durable_dir / "lib"
+        need = 2 * _hybrid_snapshot_bytes(N_MAIN)
+        free = _disk_free(durable_dir)
+        _require(free > need + (1 << 30),
+                 f"{free} bytes free under {durable_dir}, the two checkpoints of n = {N_MAIN} need about "
+                 f"{need}: run this phase at the largest n that fits")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        x = np.random.default_rng(0).random(N_MAIN, dtype=np.float32)
+        tracer = Tracer(enabled=True)
+        prev = set_tracer(tracer)
+        try:
+            spans = lambda name: [s for s in tracer.spans() if s.name == name]
+            t0 = time.perf_counter()
+            d = DurableEngine.create("hybrid", x, str(lib), device=dev, threshold=ONLINE_THRESHOLD)
+            torch.cuda.synchronize()
+            t_create = time.perf_counter() - t0
+            base_ck = spans("checkpoint")[0].duration_s
+            print(f"[durable] hybrid n={N_MAIN}: build {t_create - base_ck:.2f} s; base checkpoint "
+                  f"{base_ck:.2f} s, {on_disk(lib / 'ckpt' / 'step_00000000')} B on disk")
+            mrng = np.random.default_rng(77)  # phase 7b's mutator
+
+            def batch(i, cur_n):
+                log = update.DeltaLog()
+                for _ in range(3):
+                    log.point(int(mrng.integers(0, cur_n)), float(mrng.random()))
+                if i % 3 == 1:
+                    a = int(mrng.integers(0, cur_n - 1))
+                    log.fill(a, min(a + 63, cur_n - 1), float(mrng.random()))
+                if i % 4 == 3:
+                    log.append(mrng.random(32, dtype=np.float32))
+                return log
+
+            xm = x.copy()
+
+            def apply(i):
+                nonlocal xm
+                log = batch(i, d.n)
+                res = d.apply(log)
+                xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+                append_ms = spans("journal_append")[-1].duration_s * 1e3
+                print(f"[durable] seq {d.seq}: journal append {append_ms:.3f} ms (fsync), apply "
+                      f"{res.seconds:.2f} s, {res.n_writes} writes + {res.n_appended} appended, "
+                      f"publish_bytes {res.publish_bytes}")
+
+            apply(0)
+            apply(1)
+            # The mid checkpoint while clients send `small` requests through a
+            # server over the durable engine (no update meanwhile: v2 answers).
+            srv = RMQServer(online=d, config=ServeConfig(n=N_MAIN),
+                            warmup_bounds=build_mod.warmup_bounds(d.plan)).start()
+            srv.warmup()
+            window = {}
+
+            def clients():
+                window["out"] = run_poisson_clients(
+                    4, 80, 4.0, lambda rng, c: make_queries(rng, N_MAIN, 256, "small"),
+                    lambda l, r: (time.perf_counter(), srv.submit(l, r)), seed=20_000)
+
+            th = threading.Thread(target=clients, name="ckpt-clients")
+            th.start()
+            time.sleep(1.0)
+            t_ck0 = time.perf_counter()
+            meta = d.checkpoint()
+            t_ck1 = time.perf_counter()
+            th.join()
+            during, outside, answered = [], [], []
+            for out in window["out"]:
+                for (l, r), sub in out:
+                    _require(sub is not None, "a request was refused during the checkpoint")
+                    t_sub, fut = sub
+                    res = fut.result(timeout=300)
+                    _require(res.version == 2, f"a request answered at version {res.version}")
+                    answered.append((l, r, res.idx, res.val))
+                    (during if t_ck0 <= t_sub <= t_ck1 else outside).append(res.timing.total_s)
+            srv.close()
+            check_all("durable v2 during the checkpoint", xm, answered)
+            _require(meta["seq"] == 2 and len(during) > 0, f"no request arrived during the checkpoint: {meta}")
+            print(f"[durable] mid checkpoint {t_ck1 - t_ck0:.2f} s, {on_disk(lib / 'ckpt' / 'step_00000002')} B "
+                  f"on disk; requests submitted during it: {len(during)}, {pcts(during)}; "
+                  f"the other {len(outside)}: {pcts(outside)} (4 clients at 4/s, 256 small ranges each)")
+            apply(2)
+            apply(3)
+            live = [(k, t.cpu()) for k, t in tensor_leaves(d.store.current.state)]
+            vid, seq = d.current_vid, d.seq
+            d.close()  # the crash: only the root survives
+            del d, srv
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            arrays, _, step = ckpt_mod.load_snapshot(str(lib / "ckpt"))
+            t_load = time.perf_counter() - t0
+            del arrays
+            t0 = time.perf_counter()
+            r = DurableEngine.restore(str(lib), device=dev)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            t_replay = spans("restore")[-1].duration_s
+            print(f"[durable] restore {t_restore:.2f} s: load {t_load:.2f} s (step {step}, timed alone "
+                  f"just before), upload and mirrors {t_restore - t_load - t_replay:.2f} s, replay "
+                  f"{t_replay:.2f} s ({r.replayed} records); version {r.current_vid}, seq {r.seq}")
+            _require(r.replayed == 2 and (r.current_vid, r.seq) == (vid, seq),
+                     f"restore: replayed {r.replayed}, version {r.current_vid}, seq {r.seq}; live {vid}, {seq}")
+            got = tensor_leaves(r.store.current.state)
+            _require([k for k, _ in got] == [k for k, _ in live], "restored leaves differ from the live ones")
+            for (k, a), (_, b) in zip(live, got):
+                _require(a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a.to(dev), b)),
+                         f"restored leaf {k} != the live engine's")
+            del live
+            fresh = update.make_online("hybrid", xm, device=dev, threshold=ONLINE_THRESHOLD)
+            want = tensor_leaves(fresh.store.current.state)
+            _require([k for k, _ in want] == [k for k, _ in got], "a from-scratch build has other leaves")
+            for (k, a), (_, b) in zip(want, got):
+                _require(a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)),
+                         f"restored leaf {k} != a from-scratch build")
+            print(f"[durable] {len(got)} restored leaves bit-identical to the live engine's and to a "
+                  f"from-scratch make_online of the oracle array (n={xm.size})")
+            r.close()
+            del r, fresh, want, got
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            srv = RMQServer(restore=str(lib), device=dev, config=ServeConfig(n=xm.size))
+            t_srv = time.perf_counter() - t0
+            with srv:
+                per_client = run_poisson_clients(
+                    4, 32, 200.0, lambda rng, c: make_queries(rng, xm.size, 256, "small"), srv.submit,
+                    seed=10_000)
+                answered = []
+                for out in per_client:
+                    for (l, rq), fut in out:
+                        _require(fut is not None, "RMQServer(restore=) refused a request")
+                        res = fut.result(timeout=300)
+                        answered.append((l, rq, res.idx, res.val))
+            check_all("RMQServer(restore=)", xm, answered)
+            st = srv.stats()
+            srv.online.close()
+            print(f"[durable] RMQServer(restore=) restored in {t_srv:.2f} s (version "
+                  f"{srv.online.current_vid}); {st.served_requests} requests x 256 small ranges equal to the "
+                  f"oracle; p50 {st.p50_total_s * 1e3:.2f} ms p99 {st.p99_total_s * 1e3:.2f} ms")
+            print(f"[durable] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (phase 7c (a))")
+        finally:
+            set_tracer(prev)
+
+    def durable_cli():
+        """(b): the serve CLI's restart path at n = 2^20, twice on one root."""
+        d_root = str(durable_dir / "cli")
+        argv = ["--engine", "hybrid", "--mode", "async", "--mutate", "4", "--restore", d_root,
+                "--n", str(N_RESIDENT)]
+        texts = []
+        for run in (1, 2):
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    serve.main(argv)
+            finally:
+                texts.append(buf.getvalue())
+                print(texts[-1], end="")
+            _require("verify: 128/128 requests bit-identical" in texts[-1], f"CLI run {run} did not verify")
+        _require("restored from" not in texts[0], "the first run found a root")
+        line = f"restored from {d_root}: version 4, seq 4, n="
+        _require(line in texts[1] and "(4 journal records replayed)" in texts[1],
+                 "the second CLI run did not restore the first's root")
+        _require(all(f"update v{v}:" in texts[1] for v in range(5, 9)),
+                 "the second run's batches did not continue at versions 5-8")
+
+    def chaos_soaks():
+        """(c): the seeded chaos soak through the CLI, each updatable engine."""
+        for name in update.online_names():
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    serve.main(["--chaos", "7", "--n", str(N_RESIDENT), "--engine", name,
+                                "--restore", str(durable_dir / f"chaos_{name}")])
+            finally:
+                text = buf.getvalue()
+                summary = [s for s in text.splitlines() if s.startswith(("[OK]", "[FAIL]"))]
+                print("\n".join(summary) if summary else text, end="\n")
+            failures, recoveries, failed_ckpts = _chaos_faults(summary[0])
+            _require(summary[0].startswith("[OK]"), f"chaos {name}: {summary[0]}")
+            _require(failures >= 1 and recoveries >= 1 and failed_ckpts >= 1,
+                     f"chaos {name}: no recovered apply failure or no failed checkpoint")
+
+    try:
+        drive("durable hybrid 2^26 (library)", durable_library, none=True)
+        drive("durable CLI --restore twice 2^20", durable_cli, none=True)
+        drive("chaos soaks 2^20", chaos_soaks, none=True)
+    finally:
+        shutil.rmtree(durable_dir, ignore_errors=True)
 
     # --- phase 8: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"

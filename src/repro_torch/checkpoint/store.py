@@ -1,0 +1,247 @@
+"""Atomic, optionally async checkpoints of tensor trees, in the reference's format.
+
+Layout: ``<root>/step_<N>/`` holding one ``.npy`` per tree leaf plus
+``manifest.json`` (tree paths, shapes, dtypes, meta). Writes go to a temp
+dir and are renamed into place, so a killed job never leaves a torn
+checkpoint (restart reads the latest *complete* step). Older steps stay on
+disk, as in the reference.
+
+The format is ``repro/checkpoint/store.py``'s, file for file: a tree is a
+nest of dicts, lists, tuples and NamedTuples, flattened in
+``jax.tree_util``'s order and named by its ``keystr`` (dict keys sorted and
+written ``['name']``, sequence items ``[i]``, NamedTuple fields ``.name``),
+and tensors are saved as numpy arrays of the same dtype. So either package
+restores the other's checkpoints. ``restore`` puts the leaves back as
+tensors on ``device``; mesh shardings come with the multi-device engines
+(ROADMAP.md queue 1, step 11).
+
+Async: ``save(..., background=True)`` copies to host memory synchronously
+and writes to disk on a daemon thread.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve, to_numpy
+
+__all__ = [
+    "latest_step",
+    "load_snapshot",
+    "restore",
+    "save",
+    "save_snapshot",
+    "wait_pending",
+]
+
+_PENDING: list[threading.Thread] = []
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _children(tree):
+    """``[(key suffix, child)]`` of a container node in jax's order, or
+    None for a leaf."""
+    if isinstance(tree, dict):
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> list:
+    """``[(key, leaf)]`` as ``jax.tree_util.tree_flatten_with_path`` and
+    ``keystr`` give them; ``None`` holds no leaf."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [kv for k, v in kids for kv in _flatten(v, prefix + k)]
+
+
+def _unflatten(like, leaves: Iterator):
+    """``like`` rebuilt with its leaves taken in ``_flatten`` order."""
+    if like is None:
+        return None
+    kids = _children(like)
+    if kids is None:
+        return next(leaves)
+    vals = [_unflatten(v, leaves) for _, v in kids]
+    if isinstance(like, dict):
+        return dict(zip(sorted(like), vals))
+    if hasattr(like, "_fields"):
+        return type(like)(*vals)
+    return type(like)(vals)
+
+
+def save(
+    root: str,
+    step: int,
+    tree: Any,
+    *,
+    background: bool = False,
+    meta: dict | None = None,
+    fault: Optional[Callable[[str], None]] = None,
+):
+    """Checkpoint ``tree`` at ``step``. Atomic (write-temp-fsync-rename).
+
+    Every leaf and the manifest are fsynced before the rename, and the
+    parent directory after it: a power loss at any point leaves either the
+    previous checkpoint or the new one, never a torn mix (``latest_step``
+    ignores ``.tmp`` leftovers). ``fault`` is an optional ``check(site)``
+    callable fired at the ``checkpoint_write`` site after the leaf writes
+    but before the manifest/rename — the widest crash window.
+    """
+    flat = _flatten(tree)
+    # Copy to host memory first (a device -> host copy for CUDA tensors) so
+    # async writers never race live buffers.
+    host = [(k, to_numpy(v)) for k, v in flat]
+    manifest = {
+        "step": int(step),
+        "leaves": [
+            {"key": k, "shape": list(a.shape), "dtype": str(a.dtype), "file": f"leaf_{i}.npy"}
+            for i, (k, a) in enumerate(host)
+        ],
+        "meta": meta or {},
+    }
+
+    def write():
+        final = os.path.join(root, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp, exist_ok=True)
+        for i, (_, a) in enumerate(host):
+            with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
+                np.save(f, a)
+                f.flush()
+                os.fsync(f.fileno())
+        if fault is not None:
+            # A crash here leaves a durable-but-manifestless temp dir, which
+            # restore ignores — exactly a death between leaf writes and
+            # publication. The torn temp stays on disk, like a real crash.
+            fault("checkpoint_write")
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_dir(tmp)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        _fsync_dir(root)
+
+    if background:
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        _PENDING.append(t)
+    else:
+        write()
+
+
+def wait_pending():
+    for t in _PENDING:
+        t.join()
+    _PENDING.clear()
+
+
+def latest_step(root: str) -> int | None:
+    """Highest *complete* checkpoint step (tmp dirs are ignored)."""
+    if not os.path.isdir(root):
+        return None
+    steps = []
+    for d in os.listdir(root):
+        if d.startswith("step_") and not d.endswith(".tmp"):
+            if os.path.exists(os.path.join(root, d, "manifest.json")):
+                steps.append(int(d.split("_")[1]))
+    return max(steps) if steps else None
+
+
+# Keys of a plain-dict tree flatten to "['name']".
+_DICT_KEY = re.compile(r"^\['(.*)'\]$")
+
+
+def save_snapshot(
+    root: str,
+    step: int,
+    arrays: dict,
+    meta: dict,
+    *,
+    fault: Optional[Callable[[str], None]] = None,
+) -> None:
+    """Atomically snapshot a named-array dict (engine structure leaves).
+
+    The durability half of ``fault.durable.DurableEngine.checkpoint``:
+    ``arrays`` is an engine's host-side structure leaves keyed by name,
+    ``meta`` the JSON-serializable identity needed to rebuild it (engine
+    name, version id, journal seq, build kwargs). ``step`` is conventionally
+    the journal seq the snapshot covers, so ``latest_step`` finds the most
+    recent durable point.
+    """
+    save(root, step, dict(arrays), meta=dict(meta), fault=fault)
+
+
+def load_snapshot(root: str, step: int | None = None):
+    """Load a ``save_snapshot`` checkpoint -> ``(arrays, meta, step)``.
+
+    ``step=None`` loads the latest complete checkpoint; raises
+    ``FileNotFoundError`` when the root holds none.
+    """
+    if step is None:
+        step = latest_step(root)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint under {root!r}")
+    path = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    arrays = {}
+    for e in manifest["leaves"]:
+        m = _DICT_KEY.match(e["key"])
+        key = m.group(1) if m else e["key"]
+        arrays[key] = np.load(os.path.join(path, e["file"]))
+    return arrays, manifest["meta"], int(step)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
+
+
+def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = None) -> Any:
+    """Load a checkpoint into the structure of ``like``, every leaf a tensor
+    on ``device`` (``None``: CUDA).
+
+    ``shardings`` (the reference's elastic restore onto a mesh) comes with
+    the multi-device engines and raises here.
+    """
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore(shardings=...) places leaves on a mesh, which comes with the "
+            "multi-device engines (ROADMAP.md queue 1, step 11)"
+        )
+    dev = resolve(device)
+    path = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_key = {e["key"]: e for e in manifest["leaves"]}
+    leaves = []
+    for k, ref in _flatten(like):
+        a = np.load(os.path.join(path, by_key[k]["file"]))
+        if a.shape != _shape(ref):
+            raise ValueError(f"checkpoint leaf {k} has shape {a.shape}, the tree wants {_shape(ref)}")
+        leaves.append(torch.from_numpy(a).to(dev))
+    return _unflatten(like, iter(leaves))

@@ -16,6 +16,16 @@ Two modes:
   ``repro_torch.update.OnlineEngine``, each request is answered against its
   pinned MVCC version, and verification replays the delta stream on the
   host so every request is checked against the oracle **of its version**.
+  With ``--restore DIR`` the online engine is a
+  ``repro_torch.fault.DurableEngine`` rooted at DIR: every update batch is
+  journaled before it applies, and a later run restores DIR's latest
+  checkpoint plus its journal suffix instead of building (the root's
+  format is the reference's, so either package resumes the other's).
+
+``--chaos SEED`` runs the seeded chaos soak (``repro_torch.fault.chaos``)
+instead of serving: worker crashes, a failed patch and a failed checkpoint
+mid-stream, then a crash-restore that must be bit-identical; it exits 1
+unless the report is ``[OK]``.
 
 The engine runs on ``--device`` (default ``cuda``; it fails when CUDA is
 absent, it does not fall back). Engine choices and flag validation derive
@@ -30,8 +40,7 @@ measures it there on a miss; engines declaring ``kernel_config`` read their
 kernel geometry from it, and ``--tune`` sweeps on a miss. The build line
 names the resolved threshold and geometry, and the time resolving them took.
 Port of ``repro/launch/serve.py`` for the single-device engines; the flags
-of later slices (--restore, --chaos, --qshard, --replicas) are not ported
-yet.
+of later slices (--qshard, --replicas) are not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
@@ -43,6 +52,10 @@ yet.
       --engine hybrid --calibrate --tune --n 67108864
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --engine hybrid --mutate 8 --n 67108864
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --engine hybrid --mutate 4 --restore durable_root --n 1048576
+  PYTHONPATH=src python -m repro_torch.launch.serve --chaos 7 \
+      --engine hybrid --n 1048576
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import threading
 import time
 
@@ -147,6 +161,23 @@ def _parser() -> argparse.ArgumentParser:
         action="store_true",
         help="let the batcher shrink its deadline under load and grow it when idle",
     )
+    asy.add_argument(
+        "--restore",
+        default=None,
+        metavar="DIR",
+        help="durability root (with --mutate): restore the engine from DIR's "
+        "latest checkpoint + journal suffix if one exists, else create it "
+        "there; every update is WAL-journaled before it applies",
+    )
+    ap.add_argument(
+        "--chaos",
+        type=int,
+        default=None,
+        metavar="SEED",
+        help="run the seeded chaos soak instead of serving: crash workers, "
+        "fail patches and checkpoints mid-stream, then crash-restore and "
+        "verify nothing was lost (engines declaring 'updatable')",
+    )
     obs = ap.add_argument_group("observability")
     obs.add_argument(
         "--trace",
@@ -189,6 +220,13 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
                 f"--mutate requires an updatable engine; "
                 f"{args.engine} is not (have {registry.updatable_names()})"
             )
+    if args.chaos is not None and not spec.updatable:
+        ap.error(
+            f"--chaos requires an updatable engine; "
+            f"{args.engine} is not (have {registry.updatable_names()})"
+        )
+    if args.restore is not None and not args.mutate and args.chaos is None:
+        ap.error("--restore requires --mutate (durable online serving) or --chaos")
     kw = {}
     if args.block_size is not None:
         kw["block_size"] = args.block_size
@@ -447,11 +485,43 @@ def _run_modes(args, spec, kw, device) -> bool:
     rng = np.random.default_rng(0)
     x = rng.random(args.n, dtype=np.float32)
 
+    if args.chaos is not None:
+        from repro_torch.fault import chaos as chaos_mod
+
+        report = chaos_mod.run_soak(
+            engine=args.engine,
+            n=args.n,
+            seed=args.chaos,
+            root=args.restore,
+            workers=args.workers,
+            device=device,
+            log=print,
+        )
+        print(report.summary())
+        return bool(report.ok)
     if args.mutate:
         # Online build: the OnlineEngine plans + builds version 0 and owns
-        # the MVCC store; the server pins versions per launch.
+        # the MVCC store; the server pins versions per launch. With
+        # --restore, the engine is durable: WAL-journaled updates rooted at
+        # DIR, resumed from its checkpoint + journal when one exists.
         t0 = time.perf_counter()
-        online = update_mod.make_online(args.engine, x, device=device, **kw)
+        if args.restore is not None:
+            from repro_torch import checkpoint as ckpt_mod
+            from repro_torch.fault import DurableEngine
+
+            if ckpt_mod.latest_step(os.path.join(args.restore, "ckpt")) is not None:
+                online = DurableEngine.restore(args.restore, device=device)
+                x = np.asarray(online.store.current.x_host)
+                args.n = online.n
+                print(
+                    f"[{args.engine}] restored from {args.restore}: "
+                    f"version {online.current_vid}, seq {online.seq}, "
+                    f"n={online.n} ({online.replayed} journal records replayed)"
+                )
+            else:
+                online = DurableEngine.create(args.engine, x, args.restore, device=device, **kw)
+        else:
+            online = update_mod.make_online(args.engine, x, device=device, **kw)
         _sync(device)
         plan = online.plan
         print(

@@ -46,9 +46,14 @@ shrinks its coalescing deadline while launches fill up and grows it back
 toward ``deadline_max_s`` when flushes are deadline-triggered and
 near-empty. The trajectory is recorded per flush in ``ServeStats``.
 
-Port of ``repro/serve/server.py`` on its ``query_fn`` and ``online`` paths;
-``restore=`` comes with durability, ``submit(min_version=)`` and the
-regime affinity with the fleet (ROADMAP.md queue 1, steps 10 and 12).
+**Crash recovery**: ``restore=DIR`` restores a ``fault.DurableEngine``
+from its root (latest checkpoint + journal-suffix replay) onto ``device``
+and serves it like ``online=``; a ``DurableEngine`` passed as ``online=``
+serves the same way.
+
+Port of ``repro/serve/server.py`` on its ``query_fn``, ``online`` and
+``restore`` paths; ``submit(min_version=)`` and the regime affinity come
+with the fleet (ROADMAP.md queue 1, step 12).
 """
 
 from __future__ import annotations
@@ -319,7 +324,9 @@ class RMQServer:
         query_fn: Optional[Callable] = None,
         config: Optional[ServeConfig] = None,
         *,
-        online=None,  # repro_torch.update.OnlineEngine
+        online=None,  # repro_torch.update.OnlineEngine or fault.DurableEngine
+        restore: Optional[str] = None,  # DurableEngine root to restore from
+        device=None,  # where a restore puts the engine (None: CUDA)
         warmup_bounds: Optional[Callable] = None,
         fault_plan=None,  # fault.FaultPlan (or check callable): worker_query site
         fallback: Optional[Callable] = None,  # degraded (l, r) -> (idx, val)
@@ -328,8 +335,14 @@ class RMQServer:
         trace_attrs=None,  # static attrs stamped on every launch span
         **overrides,
     ):
-        if (query_fn is None) == (online is None):
-            raise ValueError("pass exactly one of query_fn or online")
+        if sum(x is not None for x in (query_fn, online, restore)) != 1:
+            raise ValueError("pass exactly one of query_fn, online, or restore")
+        if restore is not None:
+            # Crash recovery at construction: latest checkpoint + journal
+            # suffix replay -> bit-identical to the never-crashed engine.
+            from repro_torch.fault.durable import DurableEngine
+
+            online = DurableEngine.restore(restore, device=device, fault=fault_plan)
         self._online = online
         if online is not None:
             # Warmup / direct path: answer against the then-current version.

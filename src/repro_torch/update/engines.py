@@ -63,16 +63,23 @@ _MESH_ENGINES = ("distributed", "sharded_hybrid", "packed_sharded_hybrid")
 class EnginePoisoned(RuntimeError):
     """The engine fail-stopped after a mid-patch apply failure.
 
-    Carries what recovery needs: ``cause`` is the original exception.
-    Queries keep serving published versions.
+    Carries what recovery needs: ``cause`` is the original exception and
+    ``seq`` the failing update's journal sequence number (``None`` when the
+    engine runs unjournaled). Queries keep serving published versions; a
+    successful checkpoint+journal restore (``fault.durable``) replaces the
+    poisoned engine with a consistent one — the aborted seq is skipped on
+    replay, so the restored state is the last published version.
     """
 
-    def __init__(self, name: str, cause: BaseException):
+    def __init__(self, name: str, seq, cause: BaseException):
+        at = f" applying journaled update seq {seq}" if seq is not None else ""
         super().__init__(
-            f"online engine {name!r} is fail-stopped after an apply error: "
-            f"{cause!r}; rebuild (queries still serve published versions)"
+            f"online engine {name!r} is fail-stopped after an apply error{at}: "
+            f"{cause!r}; restore from checkpoint+journal or rebuild (queries "
+            f"still serve published versions)"
         )
         self.engine = name
+        self.seq = seq
         self.cause = cause
 
 
@@ -591,6 +598,7 @@ class OnlineEngine:
         self.store = VersionStore(first_vid=_first_vid)
         self._apply_lock = threading.Lock()
         self._failed: Optional[BaseException] = None
+        self._failed_seq: Optional[int] = None
         self._sync()
         self.store.publish(impl.state0, x.shape[0], x_host=impl.array())
         # The store owns version 0 now; keeping state0 on the impl would pin
@@ -641,7 +649,7 @@ class OnlineEngine:
         apply lock; refuses on a poisoned engine."""
         with self._apply_lock:
             if self._failed is not None:
-                raise EnginePoisoned(self.name, self._failed)
+                raise EnginePoisoned(self.name, self._failed_seq, self._failed)
             arrays = dict(self._impl.snapshot())
             meta = {
                 "engine": self.name,
@@ -725,24 +733,34 @@ class OnlineEngine:
         if batch.n_new != batch.n_old + batch.tail.size:
             raise ValueError(f"inconsistent batch lengths: {batch}")
 
-    def apply(self, deltas, *, observer: Optional[Callable] = None) -> UpdateResult:
+    def apply(
+        self,
+        deltas,
+        *,
+        observer: Optional[Callable] = None,
+        seq: Optional[int] = None,
+    ) -> UpdateResult:
         """Apply one update batch; returns the published ``UpdateResult``.
 
         ``deltas`` is a ``DeltaLog`` (coalesced here against the current
         length) or an already-coalesced ``DeltaBatch`` (validated before any
         mutation). Serialized: updates publish in apply order; queries
-        against pinned versions proceed concurrently throughout.
+        against pinned versions proceed concurrently throughout. ``seq`` is
+        the batch's journal sequence number when the caller journals
+        (``fault.durable``) — recorded on failure so the poison error names
+        the exact lost update.
 
         Failure semantics are **fail-stop**: malformed batches are rejected
         up front with the engine untouched, but an exception raised mid-patch
         may leave the host mirrors inconsistent with the published chain, so
         the engine marks itself failed and every later ``apply`` raises
-        ``EnginePoisoned`` (carrying the original exception).
-        Queries keep serving the already-published versions.
+        ``EnginePoisoned`` (carrying the original exception and failing
+        seq). Queries keep serving the already-published versions; a
+        journal-replay restore yields a clean replacement engine.
         """
         with self._apply_lock:
             if self._failed is not None:
-                raise EnginePoisoned(self.name, self._failed) from self._failed
+                raise EnginePoisoned(self.name, self._failed_seq, self._failed) from self._failed
             tr = obs_trace.get_tracer()
             if isinstance(deltas, DeltaLog):
                 with tr.span("coalesce", attrs={"engine": self.name} if tr.enabled else None):
@@ -758,6 +776,7 @@ class OnlineEngine:
                 res = build_mod.execute_update(self._uplan, batch, observer=observer)
             except BaseException as e:
                 self._failed = e
+                self._failed_seq = seq
                 raise
             return res._replace(seconds=time.perf_counter() - t0)
 

@@ -1,0 +1,143 @@
+"""repro_torch.checkpoint against the reference's ``repro.checkpoint``.
+
+The round trip and atomicity of ``tests/test_system.py`` on a tree of
+tensors, the async save, and the format: on the same dict, nested-dict,
+list and NamedTuple trees the port writes the reference's ``manifest.json``
+and ``.npy`` files byte for byte, and each package restores the other's
+checkpoint. ``restore`` puts the leaves back as tensors on ``device``;
+``shardings=`` (a mesh) raises. Tolerance: exact, dtypes included.
+"""
+
+import json
+import os
+from collections import namedtuple
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import checkpoint as jax_ckpt
+from repro_torch import checkpoint
+from torch_parity_util import to_np
+
+Pair = namedtuple("Pair", "w b")
+
+
+def _arrays(seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "f32": rng.standard_normal((4, 3)).astype(np.float32),
+        "i32": rng.integers(-9, 9, 17).astype(np.int32),
+        "i64": rng.integers(0, 1 << 40, 5).astype(np.int64),
+        "u8": rng.integers(0, 255, 6).astype(np.uint8),
+        "f64": np.float64(2.5) * np.ones((2, 2)),
+        "flag": np.array([True, False]),
+        "scalar": np.array(7, np.int32),
+    }
+
+
+# The same trees of numpy arrays for the reference and of tensors for the port.
+TREES = {
+    "dict": lambda a: {"x": a["f32"], "b_stw": a["i32"], "spec": a["u8"]},
+    "nested": lambda a: {"params": {"w": a["f32"], "b": a["f64"]}, "opt": {"m": a["i64"], "t": a["scalar"]}},
+    "list": lambda a: [a["i32"], [a["flag"], a["u8"]], (a["f32"],)],
+    "namedtuple": lambda a: {"layer": Pair(w=a["f32"], b=a["i32"]), "step": a["i64"]},
+}
+
+
+def _tensors(tree):
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree.copy())
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tensors(v) for v in tree))
+    return type(tree)(_tensors(v) for v in tree)
+
+
+def _flat(tree):
+    return [to_np(a) for a in jax.tree_util.tree_leaves(tree, is_leaf=lambda v: isinstance(v, torch.Tensor))]
+
+
+def _assert_trees_equal(a, b):
+    la, lb = _flat(a), _flat(b)
+    assert len(la) == len(lb) > 0
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.dtype, y.dtype, x.shape, y.shape)
+        np.testing.assert_array_equal(x, y)
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    tree = _tensors(TREES["nested"](_arrays()))
+    checkpoint.save(str(tmp_path), 5, tree)
+    restored = checkpoint.restore(str(tmp_path), 5, tree, device="cpu")
+    assert isinstance(restored["params"]["w"], torch.Tensor)
+    _assert_trees_equal(tree, restored)
+
+
+def test_checkpoint_atomicity(tmp_path):
+    checkpoint.save(str(tmp_path), 1, {"p": torch.arange(4)})
+    # a torn write (tmp dir) must be invisible to latest_step
+    os.makedirs(os.path.join(str(tmp_path), "step_00000002.tmp"))
+    assert checkpoint.latest_step(str(tmp_path)) == 1
+    assert checkpoint.latest_step(str(tmp_path / "missing")) is None
+
+
+def test_checkpoint_async(tmp_path):
+    checkpoint.save(str(tmp_path), 3, {"p": torch.ones(8)}, background=True)
+    checkpoint.wait_pending()
+    assert checkpoint.latest_step(str(tmp_path)) == 3
+
+
+@pytest.mark.parametrize("kind", sorted(TREES))
+def test_checkpoint_files_match_the_reference(kind, tmp_path):
+    """The same tree through both packages' ``save``: identical manifest and
+    leaf files, and each package restores the other's checkpoint."""
+    host = TREES[kind](_arrays(1))
+    tree = _tensors(host)
+    ref_root, port_root = tmp_path / "ref", tmp_path / "port"
+    jax_ckpt.save(str(ref_root), 4, host, meta={"engine": "hybrid", "seq": 4})
+    checkpoint.save(str(port_root), 4, tree, meta={"engine": "hybrid", "seq": 4})
+    a, b = ref_root / "step_00000004", port_root / "step_00000004"
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    assert "manifest.json" in names and len(names) == len(_flat(host)) + 1
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+    _assert_trees_equal(host, checkpoint.restore(str(ref_root), 4, tree, device="cpu"))
+    _assert_trees_equal(tree, jax_ckpt.restore(str(port_root), 4, host))
+
+
+def test_snapshot_roundtrip_both_ways(tmp_path):
+    arrays = {k: v for k, v in _arrays(2).items() if k != "scalar"}
+    meta = {"engine": "sparse_table", "vid": 3, "n": 17, "dtype": "float32", "build_kw": {}, "seq": 3}
+    checkpoint.save_snapshot(str(tmp_path / "port"), 3, arrays, meta)
+    jax_ckpt.save_snapshot(str(tmp_path / "ref"), 3, arrays, meta)
+    for root in ("port", "ref"):
+        for load in (checkpoint.load_snapshot, jax_ckpt.load_snapshot):
+            got, gmeta, step = load(str(tmp_path / root))
+            assert step == 3 and gmeta == meta and sorted(got) == sorted(arrays)
+            for k, v in arrays.items():
+                assert got[k].dtype == v.dtype, k
+                np.testing.assert_array_equal(got[k], v)
+    with pytest.raises(FileNotFoundError):
+        checkpoint.load_snapshot(str(tmp_path / "empty"))
+
+
+def test_restore_places_leaves_on_the_device(tmp_path):
+    tree = {"a": torch.arange(6, dtype=torch.int32), "b": [torch.zeros(2, dtype=torch.float64), None]}
+    checkpoint.save(str(tmp_path), 0, tree)
+    manifest = json.loads(Path(tmp_path, "step_00000000", "manifest.json").read_text())
+    assert [e["key"] for e in manifest["leaves"]] == ["['a']", "['b'][0]"]  # None holds no leaf
+    out = checkpoint.restore(str(tmp_path), 0, tree, device=torch.device("cpu"))
+    assert out["b"][1] is None and out["a"].device.type == "cpu" and out["b"][0].dtype == torch.float64
+    _assert_trees_equal(tree, out)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            checkpoint.restore(str(tmp_path), 0, tree)  # default device: the card
+    with pytest.raises(NotImplementedError, match="step 11"):
+        checkpoint.restore(str(tmp_path), 0, tree, device="cpu", shardings=object())
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.restore(str(tmp_path), 0, {"a": torch.zeros(5), "b": [torch.zeros(2)]}, device="cpu")

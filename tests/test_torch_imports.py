@@ -51,6 +51,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.update.engines",
         "repro_torch.update.patch",
         "repro_torch.fault.fallback",
+        "repro_torch.checkpoint.store",
+        "repro_torch.fault.wal",
+        "repro_torch.fault.durable",
+        "repro_torch.fault.chaos",
     ):
         assert mod in res["imported"]
 

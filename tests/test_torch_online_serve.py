@@ -6,7 +6,9 @@ bounds checked against the current length), the breaker of an online
 server answering through ``fault.DegradedFallback`` against each launch's
 pinned version, and the serve CLI's ``--mutate``: every request equal to the
 oracle of its pinned version, and the flag refused where the reference
-refuses it. Tolerance: exact.
+refuses it. With ``--restore DIR`` a second run resumes the first's durable
+root (its versions continue) and ``--chaos`` runs the seeded soak to an
+``[OK]`` report. Tolerance: exact.
 """
 
 import os
@@ -162,6 +164,49 @@ def test_serve_cli_mutate_verifies_every_request_against_its_version():
     ],
 )
 def test_serve_cli_mutate_flag_validation(argv, match, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--n", "1024", *argv])
+    assert match in capsys.readouterr().err
+
+
+def test_serve_cli_restore_creates_then_restores(tmp_path, capsys):
+    """The first ``--restore`` run creates the durable root, the second
+    restores it (checkpoint + 4 journal records) and continues the
+    timeline at versions 5-8; both verify every request."""
+    root = str(tmp_path / "root")
+    argv = ["--device", "cpu", "--mode", "async", "--engine", "hybrid", "--mutate", "4",
+            "--restore", root, "--n", "4096"]
+    serve.main(argv)
+    first = capsys.readouterr().out
+    assert "restored from" not in first and "[hybrid] online build" in first
+    assert "verify: 128/128 requests bit-identical" in first
+    serve.main(argv)
+    second = capsys.readouterr().out
+    assert f"[hybrid] restored from {root}: version 4, seq 4, n=4128 (4 journal records replayed)" in second
+    assert "mutate: 4 update batches applied (4 patched, 0 rebuilt), n 4128 -> 4160" in second
+    assert all(f"update v{v}:" in second for v in range(5, 9))
+    assert "verify: 128/128 requests bit-identical" in second
+
+
+def test_serve_cli_chaos_soak_reports_ok(capsys):
+    serve.main(["--device", "cpu", "--chaos", "0", "--n", "8192"])
+    out = capsys.readouterr().out
+    summary = next(line for line in out.splitlines() if line.startswith("["))
+    assert summary.startswith("[OK] hybrid seed=0:"), summary
+    assert "(1 injected apply failures -> 1 recoveries), 1 failed checkpoints" in summary
+    assert "mismatches=0 lost=0" in summary and "identical=True rebuild=True serves=True" in summary
+
+
+@pytest.mark.parametrize(
+    "argv,match",
+    [
+        (["--engine", "hybrid", "--mode", "async", "--restore", "root"],
+         "--restore requires --mutate (durable online serving) or --chaos"),
+        (["--engine", "lane", "--chaos", "1"], "--chaos requires an updatable engine"),
+        (["--engine", "fused128", "--chaos", "1"], "--chaos requires an updatable engine"),
+    ],
+)
+def test_serve_cli_restore_and_chaos_flag_validation(argv, match, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--n", "1024", *argv])
     assert match in capsys.readouterr().err
