@@ -110,6 +110,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    2^20`` for each updatable engine: every report ``[OK]``, with at least
    one recovered apply failure and one failed checkpoint. No kernel is
    launched (the durable engines wrap the online ones);
+7d. the mesh engines (``mesh_phase``), on a ``(2, 4)`` mesh ("data",
+   "model") of 8 shards round-robin over the visible cards (all on
+   ``cuda:0`` with one card), n = 2^26 float32 (phases 1-6's array), one
+   engine at a time with the memory freed between: ``sharded_hybrid`` in
+   each mode (the sharded table's global view equal to
+   ``sparse_table.build`` and x[idx] on the card, each blocked shard equal
+   to ``block_rmq.build`` of its chunk; build s and peak memory, which for
+   ``shard_batch`` and ``shard_2d`` must stay within 1.1 x
+   ``shard_structure``'s; 4096 `small` and 4096 `medium` queries timed;
+   4 x 32 x 256 of each served at 200/s, every request held to the oracle,
+   p50/p99, the device idle share of a traced `small` window), then
+   ``distributed`` (bs 1024) on an ``(8,)`` mesh, ``packed_sharded_hybrid``
+   on the float array (auto -> packed64) and packed32 on the Euler depths;
+   each also on ``edge_batch`` and the maxval-only inputs; every index
+   equal to the single-device ``hybrid``'s and to the oracle. Then
+   ``hybrid.calibrate(2^26, mesh=)`` for ``shard_structure`` and
+   ``shard_2d``, and the serve CLI's ``--engine sharded_hybrid --qshard 2d
+   --mode async`` and ``--engine distributed`` on the card's default mesh
+   (one shard). No kernel is launched (the mesh engines run the plain
+   paths, as the reference's run no Pallas kernel);
 8. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -397,6 +417,252 @@ def _device_busy_share(torch, np, dev) -> None:
     )
     for e in events[:6]:
         print(f"[trace]   {e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:90]}")
+
+
+def _traced(torch, fn):
+    """``fn()`` under ``torch.profiler`` (device activity only): ``(result,
+    device busy ms, window ms)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return out, busy_ms, wall_ms
+
+
+def mesh_phase(torch, np, dev, drive, check) -> None:
+    """Phase 7d: the mesh engines at n = 2^26 on a (2, 4) mesh of 8 shards
+    on one card (and an (8,) mesh for ``distributed``), one engine at a time.
+
+    Each engine: build, structure checks, 4096 `small` and 4096 `medium`
+    queries, ``edge_batch``'s adversarial batches and the maxval-only
+    inputs, every index equal to the single-device ``hybrid``'s and to the
+    oracle; the ``sharded_hybrid`` modes are also served async; then
+    ``calibrate(mesh=)`` and the serve CLI's mesh engines on the card's
+    default mesh. The mesh engines launch no CUDA kernel (the reference's
+    run no Pallas kernel): each run is driven with ``none``."""
+    import gc
+
+    from repro_torch.core import block_rmq, distributed, hybrid, ref, registry, sharded_hybrid, sparse_table
+    from repro_torch.core import build as build_mod
+    from repro_torch.kernels.edge_batch import edge_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import RMQServer, ServeConfig
+    from repro_torch.serve.workload import make_queries, run_poisson_clients
+
+    t_phase = time.perf_counter()
+    x = np.random.default_rng(0).random(N_MAIN, dtype=np.float32)  # phases 1-6's array
+    euler = euler_depths(EULER_HEIGHT)
+    mesh24 = make_mesh((2, 4), ("data", "model"))  # round-robin over the visible cards
+    mesh8 = make_mesh((8,), ("shard",))
+    print(f"[mesh] {mesh24!r}; {mesh8!r}")
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # Query sets, their oracle and the single-device hybrid's indices, once
+    # (the hybrid runs the fused kernel: outside the mesh runs' counts).
+    qrng = np.random.default_rng(21)
+    inputs = {"main": x, "euler": euler}
+    for dtype in ("float32", "int32"):
+        xe, le, re_ = edge_batch(128, dtype, 4099)
+        inputs[f"edge {dtype}"] = xe
+    inputs["maxval float32"] = np.array([0.0, np.inf, np.inf], np.float32)
+    inputs["maxval int32"] = np.array([5, 2**31 - 1, 2**31 - 1], np.int32)
+    qsets = {}
+    for name, arr in inputs.items():
+        if name in ("main", "euler"):
+            sets = [(dist, *make_queries(qrng, arr.size, 4096, dist)) for dist in ("small", "medium")]
+        elif name.startswith("edge"):
+            sets = [("edge", *edge_batch(128, name.split()[1], 4099)[1:])]
+        else:
+            sets = [("maxval", np.array([1, 2, 1], np.int32), np.array([2, 2, 1], np.int32))]
+        hyb = registry.build_for_serving("hybrid", arr, device=dev)
+        qsets[name] = [
+            (dist, l, r, ref.rmq_ref(arr, l, r), hybrid.query(hyb, l, r)[0].cpu().numpy()) for dist, l, r in sets
+        ]
+        del hyb
+    fresh()
+    print(f"[mesh] query sets, oracle and single-device hybrid ready in {time.perf_counter() - t_phase:.1f} s")
+
+    def answer(label, query, state, name, timed=False):
+        """Every query set of input ``name``: indices equal to the oracle and
+        to the single-device hybrid, values to x[gold]; with ``timed`` the
+        median ms per 4096-query batch over 5 repeats."""
+        arr = inputs[name]
+        for dist, l, r, gold, hyb in qsets[name]:
+            times = []
+            for _ in range(6 if timed else 1):
+                t0 = time.perf_counter()
+                idx, val = query(state, l, r)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            got = idx.cpu().numpy()
+            _require(bool((got == hyb).all()), f"{label} {name} {dist}: indices differ from the single-device hybrid")
+            check(f"{label} {name} {dist}", arr, l, r, idx, val)
+            if timed:
+                print(f"[mesh]   {label} {dist}: {np.median(times[1:]) * 1e3:.3f} ms per batch of {l.size} "
+                      f"(median of 5), {l.size}/{l.size} equal to the oracle and the hybrid")
+
+    def small_inputs(label, build):
+        """The edge batches and maxval-only inputs through ``build(arr)``."""
+        for name in ("edge float32", "edge int32", "maxval float32", "maxval int32"):
+            state, query = build(inputs[name])
+            answer(label, query, state, name)
+
+    def check_structure(label, state, struct_shards):
+        """The sharded doubling table's global view equals ``sparse_table.build``
+        of the padded array (and its values x[idx]); each shard's blocked
+        leaves equal ``block_rmq.build`` of its chunk."""
+        xd = torch.from_numpy(x).to(dev)
+        want = sparse_table.build(xd)
+        if struct_shards:
+            idx = state.st.idx.full()
+            _require(torch.equal(idx, want.idx), f"{label}: st.idx != sparse_table.build")
+            del idx
+            val = state.st.val.full()
+            _require(torch.equal(val.view(torch.int32), xd[want.idx].view(torch.int32)), f"{label}: st.val != x[idx]")
+            del val
+        else:
+            _require(torch.equal(state.st.idx.full(), want.idx), f"{label}: replicated st.idx != sparse_table.build")
+        del want
+        num = max(struct_shards, 1)
+        shard_len = N_MAIN // num
+        for s in range(num):
+            built = block_rmq.build(xd[s * shard_len:(s + 1) * shard_len], 128, device=dev)
+            for (path, a), (_, b) in zip(_leaves(distributed.shard(state.blocked, s)), _leaves(built)):
+                _require(torch.equal(a, b), f"{label}: shard {s} {path} != block_rmq.build of its chunk")
+        print(f"[mesh]   {label}: sharded table == sparse_table.build, {num} blocked shard(s) == block_rmq.build")
+
+    gold_cache = {}
+
+    def served(label, state, dist, traced=False):
+        """4 clients x 32 requests x 256 queries at 200/s through RMQServer;
+        every request held to the oracle in one batched check."""
+        spec = registry.get("sharded_hybrid")
+        srv = RMQServer(lambda l, r: spec.query(state, l, r), ServeConfig(n=N_MAIN))
+        srv.warmup()
+
+        def run():
+            with srv:
+                per_client = run_poisson_clients(
+                    4, 32, 200.0, lambda rng, c: make_queries(rng, N_MAIN, 256, dist), srv.submit, seed=10_000
+                )
+                return [(l, r, fut.result(timeout=300)) for out in per_client for (l, r), fut in out]
+
+        if traced:
+            _, busy, wall = _traced(torch, run)
+            print(f"[mesh]   {label} served {dist} (traced): device busy {busy:.3f} ms of {wall:.3f} ms "
+                  f"(idle share {1 - busy / wall:.4f})")
+            return
+        done = run()
+        l, r = (np.concatenate([d[i] for d in done]) for i in (0, 1))
+        key = (dist, l.tobytes(), r.tobytes())
+        if key not in gold_cache:
+            gold_cache[key] = ref.rmq_ref(x, l, r)
+        gold = gold_cache[key]
+        idx = np.concatenate([d[2].idx for d in done])
+        val = np.concatenate([d[2].val for d in done])
+        _require(bool((idx == gold).all() and (val == x[gold]).all()), f"{label} served {dist} != oracle")
+        st = srv.stats()
+        print(f"[mesh]   {label} served {dist}: {len(done)} requests x 256, all equal to the oracle; "
+              f"p50 {st.p50_total_s * 1e3:.2f} ms p99 {st.p99_total_s * 1e3:.2f} ms, {st.n_batches} launches")
+
+    peaks = {}
+    for mode in sharded_hybrid.MODES:
+        def sharded_mode(mode=mode):
+            label = f"sharded_hybrid {mode}"
+            fresh()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state = registry.build_for_serving("sharded_hybrid", x, mesh=mesh24, mode=mode)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            print(f"[mesh] {label} on {mesh24!r}: build {t_build:.2f} s, threshold {state.threshold}, "
+                  f"max_memory_allocated {peaks[mode]} bytes (build; {held} bytes held before it)")
+            struct = {"shard_structure": 8, "shard_batch": 0, "shard_2d": 2}[mode]
+            check_structure(label, state, struct)
+            answer(label, sharded_hybrid.query, state, "main", timed=True)
+            for dist in ("small", "medium"):
+                served(label, state, dist)
+            served(label, state, "small", traced=True)
+            print(f"[mesh]   {label}: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (build, checks, serving)")
+            del state
+            fresh()
+            small_inputs(label, lambda arr: (registry.build_for_serving("sharded_hybrid", arr, mesh=mesh24, mode=mode),
+                                             sharded_hybrid.query))
+        drive(f"sharded_hybrid {mode} on 8 shards, 2^26", sharded_mode, none=True)
+    for mode in ("shard_batch", "shard_2d"):
+        _require(peaks[mode] <= 1.1 * peaks["shard_structure"],
+                 f"{mode} peak {peaks[mode]} B exceeds 1.1 x shard_structure's {peaks['shard_structure']} B")
+    print(f"[mesh] build peaks (bytes): {json.dumps(peaks)}; replicas share one copy per card")
+
+    def one_engine(label, engine, arr_name, mesh, **kw):
+        def run():
+            fresh()
+            t0 = time.perf_counter()
+            state = registry.build_for_serving(engine, inputs[arr_name], mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            pspec = registry.packed_spec(state)
+            print(f"[mesh] {label}: build {t_build:.2f} s, layout {pspec.layout if pspec else 'unpacked'}, "
+                  f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+            query = registry.get(engine).query
+            answer(label, query, state, arr_name, timed=True)
+            sets = [(l, r) for _, l, r, *_ in qsets[arr_name]]
+            _, busy, wall = _traced(torch, lambda: [query(state, l, r) for _ in range(5) for l, r in sets])
+            print(f"[mesh]   {label} 5 x small + medium batches (traced): device busy {busy:.3f} ms of "
+                  f"{wall:.3f} ms (idle share {1 - busy / wall:.4f})")
+            del state
+            if arr_name == "main":
+                fresh()
+                small_inputs(label, lambda arr: (registry.build_for_serving(engine, arr, mesh=mesh, **kw),
+                                                 registry.get(engine).query))
+            return pspec
+        return run
+
+    drive("distributed bs 1024 on 8 shards, 2^26", one_engine("distributed (8,) bs 1024", "distributed", "main", mesh8),
+          none=True)
+    drive("packed_sharded_hybrid auto on 8 shards, 2^26",
+          one_engine("packed_sharded_hybrid auto", "packed_sharded_hybrid", "main", mesh24), none=True)
+    drive("packed_sharded_hybrid packed32 Euler on 8 shards",
+          one_engine("packed_sharded_hybrid packed32 Euler", "packed_sharded_hybrid", "euler", mesh24,
+                     packed="packed32"), none=True)
+
+    def calibrate_mesh():
+        for mode in ("shard_structure", "shard_2d"):
+            fresh()
+            t0 = time.perf_counter()
+            thr = hybrid.calibrate(N_MAIN, mesh=mesh24, mode=mode)
+            print(f"[mesh] calibrate(2^26, mesh=(2, 4), mode={mode}) = {thr} "
+                  f"(sqrt(n) = {round(N_MAIN ** 0.5)}) in {time.perf_counter() - t0:.1f} s")
+
+    drive("calibrate(mesh=) 2^26", calibrate_mesh, none=True)
+
+    def mesh_cli():
+        asy = ["--mode", "async", "--clients", "4", "--requests", "32", "--req-batch", "256", "--n", str(N_MAIN)]
+        for argv in (["--engine", "sharded_hybrid", "--qshard", "2d", *asy],
+                     ["--engine", "distributed", "--mode", "oneshot", "--batch", "4096", "--n", str(N_MAIN)]):
+            fresh()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv)
+            text = buf.getvalue()
+            print(text, end="")
+            _require("verify: 128/128 requests bit-identical" in text or "verify[64] OK" in text,
+                     f"the CLI {argv[:4]} did not verify")
+            _require("on 1 shard(s) on 1 device(s)" in text, "the CLI's default mesh is not one shard on the card")
+
+    drive("serve CLI mesh engines 2^26", mesh_cli, none=True)
+    fresh()
+    print(f"[phase] mesh engines took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1425,6 +1691,9 @@ def _main() -> int:
         drive("chaos soaks 2^20", chaos_soaks, none=True)
     finally:
         shutil.rmtree(durable_dir, ignore_errors=True)
+
+    # --- phase 7d: the mesh engines -----------------------------------------
+    mesh_phase(torch, np, dev, drive, check)
 
     # --- phase 8: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"

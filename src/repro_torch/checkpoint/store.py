@@ -12,8 +12,8 @@ nest of dicts, lists, tuples and NamedTuples, flattened in
 written ``['name']``, sequence items ``[i]``, NamedTuple fields ``.name``),
 and tensors are saved as numpy arrays of the same dtype. So either package
 restores the other's checkpoints. ``restore`` puts the leaves back as
-tensors on ``device``; mesh shardings come with the multi-device engines
-(ROADMAP.md queue 1, step 11).
+tensors on ``device``; mesh shardings come with the mesh engines' online
+patches (ROADMAP.md queue 1, step 11b).
 
 Async: ``save(..., background=True)`` copies to host memory synchronously
 and writes to disk on a daemon thread.
@@ -226,12 +226,12 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
     on ``device`` (``None``: CUDA).
 
     ``shardings`` (the reference's elastic restore onto a mesh) comes with
-    the multi-device engines and raises here.
+    the mesh engines' online patches (step 11b) and raises here.
     """
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=...) places leaves on a mesh, which comes with the "
-            "multi-device engines (ROADMAP.md queue 1, step 11)"
+            "mesh engines' online patches (ROADMAP.md queue 1, step 11b)"
         )
     dev = resolve(device)
     path = os.path.join(root, f"step_{step:08d}")

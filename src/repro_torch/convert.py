@@ -8,6 +8,14 @@ keep x's dtype, so a structure built by the reference and queried by the
 port answers exactly as the reference does. ``online_engine`` carries an
 online engine's state across: the reference's ``OnlineEngine.snapshot()``
 output resumes in the port at the same version.
+
+The mesh structures (``distributed``, ``sharded_st``, ``sharded_hybrid``)
+take the reference's *global* leaves and a port ``launch.mesh.Mesh``: each
+leaf is split into per-shard tensors as the reference's ``PartitionSpec``
+laid it out (``P(axis_names)``: the first dimension, ``P(None,
+axis_names)``: the second), so the shard-local indices of the per-shard
+blocked tables stay where they were built. A replicated leaf
+(``shard_batch``) gets one copy per device.
 """
 
 from __future__ import annotations
@@ -17,10 +25,22 @@ import torch
 
 from repro_torch._device import resolve
 from repro_torch.core import block_rmq as _block_rmq
+from repro_torch.core import distributed as _distributed
 from repro_torch.core import hybrid as _hybrid
+from repro_torch.core import packing as _packing
+from repro_torch.core import sharded_hybrid as _sharded_hybrid
 from repro_torch.core import sparse_table as _sparse_table
 
-__all__ = ["block_rmq", "fused_rmq", "hybrid", "online_engine", "sparse_table"]
+__all__ = [
+    "block_rmq",
+    "distributed",
+    "fused_rmq",
+    "hybrid",
+    "online_engine",
+    "sharded_hybrid",
+    "sharded_st",
+    "sparse_table",
+]
 
 
 def _leaf(a, device, *, index: bool = False) -> torch.Tensor:
@@ -102,3 +122,87 @@ def online_engine(arrays, meta, device=None):
     if int(meta["n"]) != np.asarray(arrays["x"]).shape[0]:
         raise ValueError(f"snapshot meta says n={meta['n']}, its x has {np.asarray(arrays['x']).shape[0]}")
     return OnlineEngine.from_snapshot(arrays, meta, device=device)
+
+
+# --- mesh structures ---------------------------------------------------------
+
+
+def _split(a, mesh, axes, dim: int, *, index: bool = False):
+    a = np.asarray(a)
+    if index and a.dtype != np.int32:
+        raise TypeError(f"index leaves must be int32, got {a.dtype}")
+    return _distributed.split_leaf(np.array(a, order="C"), mesh, axes, dim)
+
+
+def _port_spec(spec):
+    """A port ``PackSpec`` from either package's (same fields)."""
+    return None if spec is None else _packing.PackSpec(*spec)
+
+
+def _sharded_blocked(s, mesh, axes, spec):
+    """A blocked structure sharded over ``axes`` (``()``: replicated):
+    ``BlockRMQ`` leaves, or ``PackedBlockRMQ`` ones when ``spec`` is given."""
+    if spec is not None:
+        return _block_rmq.PackedBlockRMQ(
+            blocks=_split(s.blocks, mesh, axes, 0), stw=_split(s.stw, mesh, axes, 1)
+        )
+    return _block_rmq.BlockRMQ(
+        x_blocks=_split(s.x_blocks, mesh, axes, 0),
+        bmin_val=_split(s.bmin_val, mesh, axes, 0),
+        bmin_gidx=_split(s.bmin_gidx, mesh, axes, 0, index=True),
+        st=_sparse_table.SparseTable(
+            idx=_split(s.st.idx, mesh, axes, 1, index=True), x=_split(s.st.x, mesh, axes, 0)
+        ),
+    )
+
+
+def distributed(s, mesh, axis_names=None, *, spec=None):
+    """The ``distributed`` engine's state ``(structure, query_fn)`` from the
+    reference's ``build_sharded`` leaves (``build_sharded_packed``'s with
+    ``spec``, the ``PackSpec`` it was packed with), sharded over
+    ``axis_names`` (default: every axis of ``mesh``)."""
+    axes = tuple(axis_names or mesh.axis_names)
+    spec = _port_spec(spec)
+    if spec is not None:
+        qfn = _distributed.make_packed_query_fn(mesh, axes, spec)
+    else:
+        qfn = _distributed.make_query_fn(mesh, axes)
+    return _sharded_blocked(s, mesh, axes, spec), qfn
+
+
+def sharded_st(t, mesh, axis_names=None) -> _distributed.ShardedSparseTable:
+    """``ShardedSparseTable(idx, val)``, column-sharded over ``axis_names``."""
+    axes = tuple(axis_names or mesh.axis_names)
+    return _distributed.ShardedSparseTable(
+        idx=_split(t.idx, mesh, axes, 1, index=True), val=_split(t.val, mesh, axes, 1)
+    )
+
+
+def sharded_hybrid(h, mesh, axis_names=None, *, spec=None) -> _sharded_hybrid.ShardedHybridRMQ:
+    """``ShardedHybridRMQ`` from the reference's (``blocked``, ``st``, ``n``,
+    ``threshold``, ``mode``, ``dtype``) over ``mesh``, its query paths those
+    of ``h.mode``. A packed build needs its ``PackSpec`` as ``spec`` (the
+    reference's structure does not carry it)."""
+    from repro_torch.core.build import _mode_axes
+
+    axes = tuple(axis_names or mesh.axis_names)
+    struct_axes, _ = _mode_axes(h.mode, axes)
+    spec = _port_spec(spec)
+    blocked = _sharded_blocked(h.blocked, mesh, struct_axes, spec)
+    if spec is not None:
+        st = _sparse_table.PackedSparseTable(words=_split(h.st.words, mesh, struct_axes, 1))
+    elif struct_axes:
+        st = sharded_st(h.st, mesh, struct_axes)
+    else:
+        st = _sparse_table.SparseTable(idx=_split(h.st.idx, mesh, (), 1, index=True), x=_split(h.st.x, mesh, (), 0))
+    return _sharded_hybrid.assemble(
+        blocked,
+        st,
+        n=h.n,
+        threshold=h.threshold,
+        mode=h.mode,
+        mesh=mesh,
+        axis_names=axes,
+        dtype=torch.from_numpy(np.zeros(0, np.dtype(h.dtype))).dtype,
+        spec=spec,
+    )

@@ -13,6 +13,10 @@
   * ``hybrid``       — range-adaptive dispatch: short ranges to the blocked
     path (the fused CUDA kernel on the card), long ranges to the table;
     ``hybrid.calibrate`` measures the crossover.
+  * ``distributed``  — the mesh-sharded blocked engine and the
+    column-sharded doubling table with its halo-exchange build.
+  * ``sharded_hybrid`` — ``hybrid``'s dispatch over the sharded
+    constituents, in three distribution modes.
   * ``calib_cache``  — the persistent cache of measured thresholds and tuned
     kernel configs.
   * ``build``        — the staged BuildPlan pipeline every build lowers
@@ -26,6 +30,7 @@ from . import (
     block_rmq,
     build,
     calib_cache,
+    distributed,
     exhaustive,
     hybrid,
     lane_rmq,
@@ -33,6 +38,7 @@ from . import (
     packing,
     ref,
     registry,
+    sharded_hybrid,
     sparse_table,
 )
 
@@ -40,6 +46,7 @@ __all__ = [
     "block_rmq",
     "build",
     "calib_cache",
+    "distributed",
     "exhaustive",
     "hybrid",
     "lane_rmq",
@@ -47,5 +54,6 @@ __all__ = [
     "packing",
     "ref",
     "registry",
+    "sharded_hybrid",
     "sparse_table",
 ]

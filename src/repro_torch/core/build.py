@@ -3,18 +3,23 @@
 A ``BuildPlan`` is an ordered list of named stages over a shared build-state
 dict:
 
-    shard_layout   host-side: shard geometry (``ShardLayout``)
-    local_build    the structures, on the plan's device
+    shard_layout   host-side: shard geometry (``ShardLayout``) + padding
+    local_build    per-shard structures, no communication
+    halo_exchange  the distributed doubling recurrence (mesh engines only)
     finalize       assemble the engine state (+ query closures)
 
 and the online-update plans (``update_plan``) run two more over a delta
 batch: ``apply_deltas`` then ``publish`` (``repro_torch.update``).
-Single-host engines carry the degenerate layout (one shard); the halo stage
-of the mesh engines comes with the multi-device slice. ``plan_for(engine,
-n, ...)`` resolves everything static at plan time (the device, the routing
-threshold, the kernel geometry), so a plan is inspectable metadata: serving
-derives its warmup batches from it (``warmup_bounds``). Port of the
-single-host half of ``repro/core/build.py``.
+Single-host engines carry the degenerate layout (one shard) and skip the
+halo stage; the mesh engines (``distributed``, ``sharded_st``,
+``sharded_hybrid``) get real sharding over a ``launch.mesh.Mesh``, and the
+column-sharded doubling table a build whose per-device memory is bounded
+by the shard (``distributed.st_local_level0`` / ``st_halo_doubling``).
+``plan_for(engine, n, ...)`` resolves everything static at plan time (the
+device or mesh, the shard geometry, the routing threshold, the kernel
+geometry, the distribution mode), so a plan is inspectable metadata:
+serving derives its warmup batches from it (``warmup_bounds``). Port of
+``repro/core/build.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from repro_torch._device import resolve
 from repro_torch.obs import trace as obs_trace
 
-from . import block_rmq, calib_cache, lane_rmq, lca, packing, sparse_table
+from . import block_rmq, calib_cache, distributed, lane_rmq, lca, packing, sparse_table
 
 __all__ = [
     "BuildPlan",
@@ -35,6 +40,7 @@ __all__ = [
     "STAGE_NAMES",
     "ShardLayout",
     "build",
+    "default_mesh",
     "execute",
     "execute_update",
     "plan_for",
@@ -47,7 +53,14 @@ __all__ = [
 # Canonical stage order: the build pipeline, then the online-update pipeline
 # (``apply_deltas`` patches the structures from a coalesced DeltaBatch,
 # ``publish`` installs the patched state as the next MVCC version).
-STAGE_NAMES = ("shard_layout", "local_build", "finalize", "apply_deltas", "publish")
+STAGE_NAMES = (
+    "shard_layout",
+    "local_build",
+    "halo_exchange",
+    "finalize",
+    "apply_deltas",
+    "publish",
+)
 
 
 class ShardLayout(NamedTuple):
@@ -72,7 +85,29 @@ class BuildPlan(NamedTuple):
     engine: str
     layout: ShardLayout
     stages: Tuple[BuildStage, ...]
-    meta: Dict[str, Any]  # resolved device / threshold / block_size / kernel config
+    meta: Dict[str, Any]  # resolved device / mesh / threshold / block_size / kernel config
+
+
+def default_mesh(device=None):
+    """The all-devices 1-D mesh: ``(mesh, ("shard",))`` — the one definition
+    of "no mesh was passed", shared by the registry and the serve CLI.
+
+    ``device=None`` (or ``"cuda"``) spans every visible CUDA device, and
+    raises when CUDA is absent; an indexed card or ``"cpu"`` gives a
+    one-shard mesh on it.
+    """
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        return make_mesh((torch.cuda.device_count(),), ("shard",)), ("shard",)
+    return make_mesh((1,), ("shard",), devices=dev), ("shard",)
+
+
+def _mesh_or_default(mesh, axis_names, device):
+    if mesh is None:
+        return default_mesh(device)
+    return mesh, tuple(axis_names if axis_names is not None else mesh.axis_names)
 
 
 def _resolve_threshold(
@@ -81,17 +116,25 @@ def _resolve_threshold(
     block_size: int,
     *,
     backend: str,
+    n_devices: Optional[int] = None,
+    cache_path=None,
     calibrate_kw: Optional[dict] = None,
+    key_mode: Optional[str] = None,
+    key_mesh_shape=None,
     layout: Optional[str] = None,
 ) -> int:
-    """The routing-threshold policy of the hybrid planner.
+    """The routing-threshold policy, shared by both hybrid planners.
 
     ``None`` -> deterministic sqrt(n) (never touches machine state);
     ``"cached"`` -> persistent cache with the sqrt(n) fallback, never
     measuring; ``"calibrated"`` -> measure via ``hybrid.calibrate`` on a
-    miss and persist; an int pins it. ``backend`` (the plan's device type)
-    keys the cache; ``layout`` (cache key v3) scopes the measurement to a
-    packed word layout.
+    miss and persist (``calibrate_kw`` carries the mesh for a sharded
+    measurement); an int pins it. ``backend`` (the plan's device type) keys
+    the cache. Sharded planners pass ``n_devices`` and
+    ``key_mode``/``key_mesh_shape`` (cache key v2), so every (mode, mesh
+    factoring) owns its threshold; ``layout`` (cache key v3) scopes the
+    measurement to a packed word layout. ``cache_path`` overrides the
+    cache file.
     """
     from . import hybrid  # deferred: hybrid lowers its build through here
 
@@ -99,9 +142,10 @@ def _resolve_threshold(
         return max(1, int(round(n**hybrid.DEFAULT_THRESHOLD_FRAC)))
     if isinstance(threshold, (int, np.integer)) and not isinstance(threshold, bool):
         return int(threshold)
+    key_kw = dict(n_devices=n_devices, mode=key_mode, mesh_shape=key_mesh_shape, layout=layout)
     if threshold == "cached":
-        key = calib_cache.cache_key(n, block_size, backend=backend, layout=layout)
-        hit = calib_cache.load(key)
+        key = calib_cache.cache_key(n, block_size, backend=backend, **key_kw)
+        hit = calib_cache.load(key, path=cache_path)
         if hit is not None:
             return hit
         return max(1, int(round(n**hybrid.DEFAULT_THRESHOLD_FRAC)))
@@ -110,7 +154,8 @@ def _resolve_threshold(
             n,
             block_size,
             backend=backend,
-            layout=layout,
+            path=cache_path,
+            **key_kw,
             **(calibrate_kw or {}),
         )
     raise ValueError(
@@ -227,11 +272,14 @@ def execute_update(plan: BuildPlan, deltas, *, observer: Optional[Callable] = No
 
 
 _PLANNERS: Dict[str, Callable] = {}
+_MESH_PLANNERS = set()
 
 
-def _planner(name: str):
+def _planner(name: str, *, mesh: bool = False):
     def deco(fn):
         _PLANNERS[name] = fn
+        if mesh:
+            _MESH_PLANNERS.add(name)
         return fn
 
     return deco
@@ -241,10 +289,13 @@ def planner_names() -> Tuple[str, ...]:
     return tuple(sorted(_PLANNERS))
 
 
-def plan_for(engine: str, n: int, *, device=None, **kwargs) -> BuildPlan:
+def plan_for(engine: str, n: int, *, device=None, mesh=None, axis_names=None, **kwargs) -> BuildPlan:
     """Resolve the staged BuildPlan for ``engine`` over a length-``n`` array.
 
-    ``device=None`` means CUDA, and raises when CUDA is absent.
+    ``device=None`` means CUDA, and raises when CUDA is absent. The mesh
+    engines build over ``mesh`` (``axis_names``: its axes unless given);
+    without one, over ``default_mesh(device)``. A mesh passed to a
+    single-device engine raises.
     """
     try:
         planner = _PLANNERS[engine]
@@ -252,12 +303,16 @@ def plan_for(engine: str, n: int, *, device=None, **kwargs) -> BuildPlan:
         raise ValueError(
             f"no build planner for engine {engine!r}; have {planner_names()}"
         ) from None
+    if engine in _MESH_PLANNERS:
+        return planner(int(n), device=device, mesh=mesh, axis_names=axis_names, **kwargs)
+    if mesh is not None or axis_names is not None:
+        raise ValueError(f"engine {engine!r} builds on one device: pass device=, not a mesh")
     return planner(int(n), device=resolve(device), **kwargs)
 
 
-def build(engine: str, x, *, device=None, observer=None, **kwargs):
+def build(engine: str, x, *, device=None, mesh=None, axis_names=None, observer=None, **kwargs):
     """The single build entry point: ``plan_for`` + ``execute`` in one call."""
-    plan = plan_for(engine, len(x), device=device, **kwargs)
+    plan = plan_for(engine, len(x), device=device, mesh=mesh, axis_names=axis_names, **kwargs)
     return execute(plan, x, observer=observer)
 
 
@@ -466,4 +521,254 @@ def _plan_hybrid(
             "kernel_config": cfg,
             "packed": pack_layout,
         },
+    )
+
+
+# --- mesh planners ----------------------------------------------------------
+
+
+def _st_layout(n: int, num: int) -> ShardLayout:
+    n_pad = -(-max(n, 1) // num) * num
+    return ShardLayout(n=n, n_pad=n_pad, num_shards=num, shard_len=n_pad // num)
+
+
+def _sharded_st_stages(mesh, axis_names, layout, *, key: str = "st"):
+    """The distributed doubling-table build as (layout, local, halo) stage fns.
+
+    Shared by the standalone ``sharded_st`` plan and the sharded-hybrid
+    plans; writes ``{key}`` (a ``ShardedSparseTable``) into the build state.
+    """
+
+    def lay(state):
+        x = state["x"]
+        # Pad columns with maxval; queries never index past n-1 and every
+        # window [c, c + 2^k) they touch lies inside [l, r], so pads never
+        # win. Each shard's columns land on its device.
+        state[f"{key}_xp"] = distributed.shard_rows(x, mesh, axis_names, layout.shard_len, block_rmq.maxval(x.dtype))
+        return state
+
+    def local(state):
+        state[f"{key}_level0"] = distributed.st_local_level0(state.pop(f"{key}_xp"), mesh, axis_names)
+        return state
+
+    def halo(state):
+        idx0, val0 = state.pop(f"{key}_level0")
+        idx, val = distributed.st_halo_doubling(idx0, val0, mesh, axis_names)
+        state[key] = distributed.ShardedSparseTable(idx=idx, val=val)
+        return state
+
+    return lay, local, halo
+
+
+def _mesh_meta(mesh, axis_names, **meta) -> dict:
+    return {"device": distributed.home_device(mesh), "mesh": mesh, "axis_names": axis_names, **meta}
+
+
+@_planner("sharded_st", mesh=True)
+def _plan_sharded_st(n, *, device=None, mesh=None, axis_names=None):
+    mesh, axis_names = _mesh_or_default(mesh, axis_names, device)
+    layout = _st_layout(n, distributed.num_shards(mesh, axis_names))
+    lay, local, halo = _sharded_st_stages(mesh, axis_names, layout)
+
+    def fin(state):
+        state["result"] = state["st"]
+        return state
+
+    return BuildPlan(
+        "sharded_st",
+        layout,
+        (
+            BuildStage("shard_layout", lay),
+            BuildStage("local_build", local),
+            BuildStage("halo_exchange", halo),
+            BuildStage("finalize", fin),
+        ),
+        _mesh_meta(mesh, axis_names),
+    )
+
+
+def _no_quantized(pack_layout) -> None:
+    if pack_layout == "quantized":
+        raise ValueError(
+            "quantized packing is single-host only: its exact-fallback gather "
+            "needs the raw blocks resident, which the sharded merge does not "
+            "ship; use packed32/packed64/auto for mesh engines"
+        )
+
+
+@_planner("distributed", mesh=True)
+def _plan_distributed(n, *, device=None, mesh=None, axis_names=None, block_size=1024, packed=None):
+    pack_layout = _norm_packed(packed)
+    _no_quantized(pack_layout)
+    mesh, axis_names = _mesh_or_default(mesh, axis_names, device)
+    num = distributed.num_shards(mesh, axis_names)
+    chunk = num * block_size
+    n_pad = -(-max(n, 1) // chunk) * chunk
+    layout = ShardLayout(n=n, n_pad=n_pad, num_shards=num, shard_len=n_pad // num)
+
+    def local(state):
+        if pack_layout is not None:
+            # auto resolves to packed32/packed64 only, never quantized.
+            spec = packing.spec_for(state["x"], n, pack_layout)
+            state["spec"] = spec
+            state["blocked"] = distributed.build_sharded_packed(state["x"], mesh, axis_names, block_size, spec)
+        else:
+            state["blocked"] = distributed.build_sharded(state["x"], mesh, axis_names, block_size)
+        return state
+
+    def fin(state):
+        if "spec" in state:
+            qfn = distributed.make_packed_query_fn(mesh, axis_names, state["spec"])
+        else:
+            qfn = distributed.make_query_fn(mesh, axis_names)
+        state["result"] = (state["blocked"], qfn)
+        return state
+
+    return BuildPlan(
+        "distributed",
+        layout,
+        (
+            BuildStage("shard_layout", lambda state: state),
+            BuildStage("local_build", local),
+            BuildStage("finalize", fin),
+        ),
+        _mesh_meta(mesh, axis_names, block_size=block_size, packed=pack_layout),
+    )
+
+
+def _mode_axes(mode: str, axis_names: Tuple[str, ...]):
+    """(structure axes, batch axes) per distribution mode.
+
+    ``shard_2d`` puts the structure on the first axis and the batch on the
+    rest; on a 1-axis mesh it degrades to ``shard_structure``.
+    """
+    if mode == "shard_structure":
+        return axis_names, ()
+    if mode == "shard_batch":
+        return (), axis_names
+    return axis_names[:1], axis_names[1:]  # shard_2d
+
+
+@_planner("sharded_hybrid", mesh=True)
+def _plan_sharded_hybrid(
+    n,
+    *,
+    device=None,
+    mesh=None,
+    axis_names=None,
+    block_size=128,
+    threshold=None,
+    mode="shard_structure",
+    cache_path=None,
+    packed=None,
+):
+    from . import sharded_hybrid
+
+    if mode not in sharded_hybrid.MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {sharded_hybrid.MODES}")
+    pack_layout = _norm_packed(packed)
+    _no_quantized(pack_layout)
+    mesh, axis_names = _mesh_or_default(mesh, axis_names, device)
+    num = distributed.num_shards(mesh, axis_names)
+    struct_axes, batch_axes = _mode_axes(mode, axis_names)
+    thr = _resolve_threshold(
+        threshold,
+        n,
+        block_size,
+        backend=distributed.home_device(mesh).type,
+        n_devices=num,
+        cache_path=cache_path,
+        # Sharded-aware measurement: calibrate times the sharded constituents
+        # on this very mesh, so the cached value reflects the merge costs.
+        calibrate_kw={"use_kernels": False, "mesh": mesh, "axis_names": axis_names},
+        # Cache key v2: the measurement varies per (mode, mesh factoring).
+        key_mode=mode,
+        key_mesh_shape=tuple(mesh.shape[a] for a in mesh.axis_names),
+        layout=pack_layout,
+    )
+    num_struct = distributed.num_shards(mesh, struct_axes)
+    layout = _st_layout(n, num_struct)
+
+    stages = []
+    if struct_axes:
+        lay, st_local, st_halo = _sharded_st_stages(mesh, struct_axes, layout)
+
+        if pack_layout is not None:
+
+            def local(state):
+                x = state["x"]
+                # One spec for both tiers (same key bias / idx width), so the
+                # packed halo recurrence and the blocked merge share a total
+                # order. Words carry GLOBAL indices: merges need no per-shard
+                # offsetting and the halo reads ONE plane per level.
+                spec = packing.spec_for(x, n, pack_layout)
+                state["spec"] = spec
+                state["blocked"] = distributed.build_sharded_packed(x, mesh, struct_axes, block_size, spec)
+                words = distributed.pack_global(x, spec, layout.n_pad)
+                state["st_w0"] = distributed.shard_rows(words, mesh, struct_axes, layout.shard_len)
+                return state
+
+            def halo(state):
+                words = distributed.st_halo_doubling_packed(state.pop("st_w0"), mesh, struct_axes, state["spec"])
+                state["st"] = sparse_table.PackedSparseTable(words=words)
+                return state
+
+            stages.append(BuildStage("shard_layout", lambda state: state))
+            stages.append(BuildStage("local_build", local))
+            stages.append(BuildStage("halo_exchange", halo))
+        else:
+
+            def local(state):
+                state["blocked"] = distributed.build_sharded(state["x"], mesh, struct_axes, block_size)
+                return st_local(state)
+
+            stages.append(BuildStage("shard_layout", lay))
+            stages.append(BuildStage("local_build", local))
+            stages.append(BuildStage("halo_exchange", st_halo))
+    else:  # shard_batch: replicated structures, no halo stage
+
+        def local(state):
+            x = state["x"]
+            if pack_layout is not None:
+                spec = packing.spec_for(x, n, pack_layout)
+                state["spec"] = spec
+                state["blocked"] = distributed.build_replicated_packed(x, mesh, block_size, spec)
+                state["st"] = distributed.build_replicated_st_packed(x, mesh, spec)
+            else:
+                state["blocked"] = distributed.build_replicated(x, mesh, block_size)
+                state["st"] = distributed.build_replicated_st(x, mesh)
+            return state
+
+        stages.append(BuildStage("shard_layout", lambda state: state))
+        stages.append(BuildStage("local_build", local))
+
+    def fin(state):
+        state["result"] = sharded_hybrid.assemble(
+            state["blocked"],
+            state["st"],
+            n=n,
+            threshold=thr,
+            mode=mode,
+            mesh=mesh,
+            axis_names=axis_names,
+            dtype=state["x"].dtype,
+            spec=state.get("spec"),
+        )
+        return state
+
+    stages.append(BuildStage("finalize", fin))
+    return BuildPlan(
+        "sharded_hybrid",
+        layout,
+        tuple(stages),
+        _mesh_meta(
+            mesh,
+            axis_names,
+            block_size=block_size,
+            threshold=int(thr),
+            mode=mode,
+            struct_axes=struct_axes,
+            batch_axes=batch_axes,
+            packed=pack_layout,
+        ),
     )

@@ -295,22 +295,32 @@ def calibrate(
     ``layout`` measures the packed constituents (cache key v3). packed32's
     key-range precondition is data-dependent, so that measurement runs over
     a narrow-range int32 proxy array (``_packed32_proxy``); the other
-    layouts keep the float proxy. ``mesh``/``axis_names``/``mode`` name the
-    sharded measurement, which comes with the multi-device engines.
+    layouts keep the float proxy.
+
+    With ``mesh`` (+ optional ``axis_names``/``mode``) the *sharded*
+    constituents are measured — the sharded blocked path and the sharded
+    doubling table in that distribution mode, on the mesh's devices
+    (``device`` and ``use_kernels`` are then unused: the mesh engines run
+    no kernel, as the reference's do not) — so the threshold reflects the
+    merge costs on that mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "calibrate(mesh=...) measures the sharded constituents, which are not "
-            "ported yet (ROADMAP.md, queue 1 step 11)"
-        )
-    del axis_names, mode
-    dev = resolve(device)
     rng = np.random.default_rng(seed)
     if layout == "packed32":
         x = _packed32_proxy(rng, n)
     else:
         x = rng.random(n, dtype=np.float32)
-    s = build(x, block_size, use_kernels=use_kernels, packed=layout, device=dev)
+    if mesh is None:
+        dev = resolve(device)
+        s = build(x, block_size, use_kernels=use_kernels, packed=layout, device=dev)
+        short_fn, long_fn = s.short_fn, s.long_fn
+    else:
+        # Deferred import: sharded_hybrid builds on this module's dispatcher.
+        from . import sharded_hybrid
+
+        sh = sharded_hybrid.build(x, mesh, axis_names, block_size, threshold=0, mode=mode, packed=layout)
+        dev = sh.device
+        short_fn = lambda l, r: sh.short_fn(sh.blocked, l, r)
+        long_fn = lambda l, r: sh.long_fn(sh.st, l, r)
 
     lengths = np.unique(np.geomspace(1, n, num=8).astype(np.int64).clip(1, n))
     crossover = None
@@ -320,9 +330,7 @@ def calibrate(
         lj = as_index(lo, dev)
         rj = as_index(np.minimum(lo + length - 1, n - 1), dev)
 
-        if _measure("long", s.long_fn, lj, rj, repeats) < _measure(
-            "short", s.short_fn, lj, rj, repeats
-        ):
+        if _measure("long", long_fn, lj, rj, repeats) < _measure("short", short_fn, lj, rj, repeats):
             # The long path wins at `length`; routing is `len <= threshold ->
             # short`, so the threshold is the last length where short won.
             crossover = int(prev_length)

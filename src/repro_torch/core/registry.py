@@ -11,20 +11,24 @@ kwargs at one enforcement point. Engines with a ``packed`` build kwarg build
 packed word structures on request; their state is then a ``(structure,
 PackSpec)`` pair. The hybrid serve plans read the routing threshold and
 the kernel geometry from the calibration cache (``"cached"``; the serve
-CLI's ``--calibrate``/``--tune`` measure on a miss). Port of
-``repro/core/registry.py`` for the single-device engines.
+CLI's ``--calibrate``/``--tune`` measure on a miss). The mesh engines
+(``needs_mesh``: ``distributed``, ``sharded_hybrid``,
+``packed_sharded_hybrid``) take ``mesh``/``axis_names`` beside the build
+kwargs and build over ``default_mesh(device)`` without them. Port of
+``repro/core/registry.py``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
-from . import block_rmq, build as build_mod, exhaustive, hybrid, lane_rmq, lca, packing, sparse_table
+from . import block_rmq, build as build_mod, exhaustive, hybrid, lane_rmq, lca, packing, sharded_hybrid, sparse_table
 
 __all__ = [
     "EngineSpec",
     "ENGINES",
     "build_for_serving",
+    "default_mesh",
     "get",
     "names",
     "packed_spec",
@@ -40,9 +44,10 @@ class EngineSpec(NamedTuple):
     ``build``/``query`` are the conformance contract every oracle sweep
     uses. ``build_kwargs`` is the vocabulary of serving build options the
     engine understands. ``serve_plan`` resolves the engine's serving
-    BuildPlan: ``(n, device, **kw) -> BuildPlan``. ``updatable`` enrolls it
-    in the online updates. ``doc`` is one line for CLI help and error
-    messages.
+    BuildPlan: ``(n, device, **kw) -> BuildPlan``; a mesh engine
+    (``needs_mesh``) takes ``mesh``/``axis_names`` in ``kw`` and declares
+    its distribution ``modes``. ``updatable`` enrolls it in the online
+    updates. ``doc`` is one line for CLI help and error messages.
     """
 
     build: Callable  # (x, device=None) -> state
@@ -56,6 +61,8 @@ class EngineSpec(NamedTuple):
     # against its per-engine patch implementations.
     updatable: bool = False
     doc: str = ""
+    needs_mesh: bool = False  # builds over a launch.mesh.Mesh
+    modes: tuple = ()  # distribution modes of a mesh engine
 
 
 def _simple_serve_plan(planner: str, **fixed):
@@ -71,11 +78,12 @@ def _is_packed_state(s) -> bool:
 
 
 def packed_spec(state):
-    """The ``PackSpec`` a served build resolved to, None when unpacked: the
-    hybrid's ``spec``, or the ``(structure, PackSpec)`` pair that is the
-    state (``block``) or its first part (``sparse_table``'s ``(table, x)``,
-    the fused engines' ``(structure, config)``)."""
-    if isinstance(state, hybrid.HybridRMQ):
+    """The ``PackSpec`` a served build resolved to, None when unpacked (or
+    not kept: the ``distributed`` state): the (sharded) hybrid's ``spec``,
+    or the ``(structure, PackSpec)`` pair that is the state (``block``) or
+    its first part (``sparse_table``'s ``(table, x)``, the fused engines'
+    ``(structure, config)``)."""
+    if isinstance(state, (hybrid.HybridRMQ, sharded_hybrid.ShardedHybridRMQ)):
         return state.spec
     for s in (state, state[0] if isinstance(state, tuple) else None):
         if _is_packed_state(s):
@@ -143,6 +151,47 @@ def _kernels_engine(block_size: int, kernel_config=None, doc: str = "") -> Engin
         build_kwargs=frozenset({"block_size", "kernel_config", "packed"}),
         serve_plan=serve_plan,
         doc=doc or "fused blocked-RMQ CUDA kernel (plain PyTorch on CPU)",
+    )
+
+
+def default_mesh(device=None):
+    """The all-devices 1-D serving mesh: ``(mesh, axis_names)``.
+
+    The one definition of "no mesh was passed", shared with the BuildPlan
+    pipeline (``core.build.default_mesh``) so planner defaults, serving
+    builds and the serve CLI never disagree.
+    """
+    return build_mod.default_mesh(device)
+
+
+# --- mesh engines ----------------------------------------------------------
+
+
+def _distributed_query(state, l, r):
+    s, qfn = state
+    return qfn(s, l, r)
+
+
+def _mesh_engine(planner: str, query, serve_kw: dict, build_kwargs, doc: str, **build_fixed) -> EngineSpec:
+    """A mesh engine: ``build(x, device=None, mesh=None, axis_names=None)``
+    over ``default_mesh(device)`` unless a mesh is given.
+
+    ``updatable`` stays False until the mesh engines' online patches are
+    ported (queue 1 step 11b): ``update.make_online`` refuses them, naming
+    that step.
+    """
+
+    def build(x, device=None, mesh=None, axis_names=None):
+        return build_mod.build(planner, x, device=device, mesh=mesh, axis_names=axis_names, **build_fixed)
+
+    return EngineSpec(
+        build,
+        query,
+        build_kwargs=frozenset(build_kwargs),
+        serve_plan=_simple_serve_plan(planner, **serve_kw),
+        doc=doc,
+        needs_mesh=True,
+        modes=sharded_hybrid.MODES if planner == "sharded_hybrid" else (),
     )
 
 
@@ -223,6 +272,36 @@ ENGINES: dict = {
         updatable=True,
         doc="hybrid over packed (value, index) word planes",
     ),
+    # Mesh-sharded blocked engine (structure sharded, queries replicated).
+    "distributed": _mesh_engine(
+        "distributed",
+        _distributed_query,
+        {"block_size": 1024},
+        {"block_size", "packed"},
+        "mesh-sharded blocked engine, two-min merge",
+        block_size=128,
+    ),
+    # Mesh-sharded range-adaptive dispatcher (over every visible card by
+    # default; a one-shard mesh degenerates to the single-device hybrid).
+    "sharded_hybrid": _mesh_engine(
+        "sharded_hybrid",
+        sharded_hybrid.query,
+        {"block_size": 128, "threshold": "cached"},
+        {"block_size", "threshold", "mode", "packed"},
+        "sharded range-adaptive hybrid (shard_structure | shard_batch | shard_2d)",
+        block_size=128,
+    ),
+    # Packed sharded hybrid: words carry global indices, so the sharded
+    # merge is ONE min and the halo recurrence reads ONE plane per level.
+    "packed_sharded_hybrid": _mesh_engine(
+        "sharded_hybrid",
+        sharded_hybrid.query,
+        {"block_size": 128, "threshold": "cached", "packed": "auto"},
+        {"block_size", "threshold", "mode", "packed"},
+        "sharded hybrid over packed word planes (one-min merge, single-plane halos)",
+        block_size=128,
+        packed="auto",
+    ),
 }
 
 
@@ -249,21 +328,26 @@ def get(name: str) -> EngineSpec:
 def plan_for_serving(name: str, n: int, device=None, **kwargs):
     """Resolve engine ``name``'s serving BuildPlan on ``device``, validating kwargs.
 
-    Unknown kwargs raise ``ValueError`` naming the engine's declared
-    capabilities — the single enforcement point behind CLI flag validation.
+    Unknown kwargs and unsupported modes raise ``ValueError`` naming the
+    engine's declared capabilities — the single enforcement point behind
+    CLI flag validation. A mesh engine also takes ``mesh``/``axis_names``
+    (default: ``default_mesh(device)``).
     """
     spec = get(name)
     if not spec.serveable:
         raise ValueError(f"engine {name!r} is not serveable ({spec.doc})")
+    mesh_kw = {k: kwargs.pop(k) for k in ("mesh", "axis_names") if k in kwargs and spec.needs_mesh}
     unknown = set(kwargs) - set(spec.build_kwargs)
     if unknown:
         raise ValueError(
             f"engine {name!r} does not accept {sorted(unknown)}; "
             f"declared build kwargs: {sorted(spec.build_kwargs)}"
         )
+    if "mode" in kwargs and kwargs["mode"] not in spec.modes:
+        raise ValueError(f"engine {name!r} does not support mode {kwargs['mode']!r}; have {spec.modes}")
     if spec.serve_plan is None:
         raise ValueError(f"engine {name!r} declares no serving BuildPlan")
-    return spec.serve_plan(int(n), device, **kwargs)
+    return spec.serve_plan(int(n), device, **mesh_kw, **kwargs)
 
 
 def build_for_serving(name: str, x, device=None, **kwargs):

@@ -31,8 +31,8 @@ so ``serve.RMQServer(online=...)`` takes either interchangeably.
 Port of ``repro/fault/durable.py`` for the single-device engines: the
 on-disk root (journal and checkpoints) is the reference's, byte for byte,
 so either package restores the other's. ``mesh``/``axis_names`` (the
-sharded engines) come with the multi-device engines (ROADMAP.md queue 1,
-step 11) and raise here.
+sharded engines) come with their online patches (ROADMAP.md queue 1,
+step 11b) and raise here.
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def _fault_fn(fault) -> Optional[Callable[[str], None]]:
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "a durable engine on a mesh needs the multi-device engines "
-            "(ROADMAP.md queue 1, step 11); pass device= instead"
+            "a durable engine on a mesh needs the mesh engines' online patches "
+            "(ROADMAP.md queue 1, step 11b); pass device= instead"
         )
 
 

@@ -39,8 +39,14 @@ cache (``core.calib_cache``, ``RMQ_TORCH_CALIB_CACHE``), and ``--calibrate``
 measures it there on a miss; engines declaring ``kernel_config`` read their
 kernel geometry from it, and ``--tune`` sweeps on a miss. The build line
 names the resolved threshold and geometry, and the time resolving them took.
-Port of ``repro/launch/serve.py`` for the single-device engines; the flags
-of later slices (--qshard, --replicas) are not ported yet.
+The mesh engines (``distributed``, ``sharded_hybrid``,
+``packed_sharded_hybrid``) build over a mesh of the ``--device``'s cards
+(``core.build.default_mesh``: every visible card for ``cuda``, one shard
+for ``cpu``); ``--qshard`` shards the query batch (``shard_batch``) and
+``--qshard 2d`` factors the cards into a (structure, batch) grid
+(``shard_2d``, which a one-card mesh degrades to ``shard_structure``).
+Port of ``repro/launch/serve.py``; the fleet's flags (--replicas,
+--max-lag) are not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
@@ -56,6 +62,8 @@ of later slices (--qshard, --replicas) are not ported yet.
       --engine hybrid --mutate 4 --restore durable_root --n 1048576
   PYTHONPATH=src python -m repro_torch.launch.serve --chaos 7 \
       --engine hybrid --n 1048576
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --engine sharded_hybrid --qshard 2d --n 67108864
 """
 
 from __future__ import annotations
@@ -74,11 +82,15 @@ from repro_torch import update as update_mod
 from repro_torch._device import resolve, to_numpy
 from repro_torch.core import build as build_mod
 from repro_torch.core import ref, registry
+from repro_torch.launch.mesh import factor_2d, make_mesh
 from repro_torch.obs import Tracer, set_tracer, verify_request_chains
 from repro_torch.serve import RMQServer, ServeConfig, ServerOverloaded
 from repro_torch.serve.workload import make_queries, run_poisson_clients
 
 __all__ = ["main"]
+
+# --qshard values -> sharded_hybrid distribution modes.
+_QSHARD_MODES = {"batch": "shard_batch", "2d": "shard_2d"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -108,6 +120,17 @@ def _parser() -> argparse.ArgumentParser:
         help="serve packed (value, index) word structures (core.packing): bare "
         "--packed (= 'auto') picks the tightest layout the data fits, or name "
         "one explicitly (engines declaring a 'packed' build kwarg)",
+    )
+    ap.add_argument(
+        "--qshard",
+        nargs="?",
+        const="batch",
+        choices=sorted(_QSHARD_MODES),
+        default=None,
+        help="shard the query batch: bare --qshard (= 'batch') replicates the "
+        "structure and shards queries over the mesh; '--qshard 2d' shards the "
+        "structure over one mesh axis and the batch over the other (engines "
+        "declaring the matching mode)",
     )
     ap.add_argument(
         "--calibrate",
@@ -201,6 +224,12 @@ def _parser() -> argparse.ArgumentParser:
 
 def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
     """Flag validation straight off the EngineSpec capability metadata."""
+    if args.qshard is not None and _QSHARD_MODES[args.qshard] not in spec.modes:
+        ap.error(
+            f"--qshard {args.qshard} requires an engine with a "
+            f"'{_QSHARD_MODES[args.qshard]}' mode; "
+            f"{args.engine} declares modes {spec.modes or '()'}"
+        )
     for flag, on, kwarg in (
         ("--block-size", args.block_size is not None, "block_size"),
         ("--packed", args.packed is not None, "packed"),
@@ -212,6 +241,11 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
                 f"{flag} requires an engine with a '{kwarg}' build kwarg; "
                 f"{args.engine} declares {sorted(spec.build_kwargs) or '()'}"
             )
+    if args.packed == "quantized" and spec.needs_mesh:
+        ap.error(
+            "--packed quantized is single-host only (its exact fallback needs "
+            f"the raw blocks resident); {args.engine} is a mesh engine"
+        )
     if args.mutate:
         if args.mode != "async":
             ap.error("--mutate requires --mode async")
@@ -236,7 +270,34 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
         kw["kernel_config"] = "tuned" if args.tune else "cached"
     if args.packed is not None:
         kw["packed"] = args.packed
+    if args.qshard is not None:
+        kw["mode"] = _QSHARD_MODES[args.qshard]
     return kw
+
+
+def _serve_mesh(args, spec: registry.EngineSpec, device):
+    """``{"mesh": ..., "axis_names": ...}`` for a mesh engine, else ``{}``.
+
+    ``--qshard 2d`` factors the cards into the squarest (struct, qbatch)
+    grid; everything else gets the default all-cards 1-D mesh.
+    """
+    if not spec.needs_mesh:
+        return {}
+    mesh, axes = registry.default_mesh(device)
+    ndev = len(mesh.physical_devices)
+    if args.qshard == "2d" and ndev > 1:
+        axes = ("struct", "qbatch")
+        mesh = make_mesh(factor_2d(ndev), axes, devices=mesh.physical_devices)
+    return {"mesh": mesh, "axis_names": axes}
+
+
+def _where(device, mesh_kw) -> str:
+    """Where the engine runs, for the result lines: one device, or a mesh's
+    shards and the devices they sit on."""
+    mesh = mesh_kw.get("mesh")
+    if mesh is None:
+        return f"1 device ({device})"
+    return f"{mesh.size} shard(s) on {len(mesh.physical_devices)} device(s) ({mesh.physical_devices[0]})"
 
 
 def _sync(device: torch.device) -> None:
@@ -244,7 +305,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_oneshot(args, spec, state, x, rng, device) -> bool:
+def _run_oneshot(args, spec, state, x, rng, where: str) -> bool:
     total_q = 0
     last = None
     t0 = time.perf_counter()
@@ -253,7 +314,7 @@ def _run_oneshot(args, spec, state, x, rng, device) -> bool:
         idx, val = spec.query(state, l, r)
         last = (l, r, idx, val)
         total_q += args.batch
-    _sync(device)
+    _sync(idx.device)
     t_serve = time.perf_counter() - t0
 
     l, r, idx, val = last
@@ -261,16 +322,17 @@ def _run_oneshot(args, spec, state, x, rng, device) -> bool:
     gold = ref.rmq_ref(x, l[:k], r[:k])
     idx_h = to_numpy(idx[:k])
     ok = bool((idx_h == gold).all() and (to_numpy(val[:k]) == x[gold]).all())
+    mode = f" qshard={args.qshard}" if args.qshard else ""
     print(
-        f"[{args.engine}] served {total_q} RMQs over n={args.n} "
-        f"({args.dist} ranges) on 1 device ({device}): "
+        f"[{args.engine}{mode}] served {total_q} RMQs over n={args.n} "
+        f"({args.dist} ranges) on {where}: "
         f"serve {t_serve*1e3:.1f} ms ({t_serve/total_q*1e9:.1f} ns/RMQ), "
         f"verify[{k}] {'OK' if ok else 'MISMATCH'}"
     )
     return ok
 
 
-def _run_async(args, spec, state, x, plan, device, online=None) -> bool:
+def _run_async(args, spec, state, x, plan, where: str, online=None) -> bool:
     cfg = ServeConfig(
         deadline_s=args.deadline_ms * 1e-3,
         max_batch=args.max_batch,
@@ -358,10 +420,11 @@ def _run_async(args, spec, state, x, plan, device, online=None) -> bool:
         if not (np.array_equal(res.idx, gold) and np.array_equal(res.val, ox[gold])):
             mismatches += 1
 
+    mode = f" qshard={args.qshard}" if args.qshard else ""
     print(
-        f"[async {args.engine}] {args.clients} clients x {args.requests} reqs "
+        f"[async {args.engine}{mode}] {args.clients} clients x {args.requests} reqs "
         f"x {args.req_batch} RMQs ({args.dist} ranges, {args.rate:g} req/s/client, "
-        f"deadline {args.deadline_ms:g} ms) on 1 device ({device}), "
+        f"deadline {args.deadline_ms:g} ms) on {where}, "
         f"{wall*1e3:.0f} ms wall"
     )
     print(f"  {st.summary()}")
@@ -530,18 +593,20 @@ def _run_modes(args, spec, kw, device) -> bool:
             f"{plan.layout.shard_len} cols, threshold {plan.meta.get('threshold')}, "
             f"version {online.current_vid})"
         )
-        return _run_async(args, spec, None, x, plan, device, online=online)
+        return _run_async(args, spec, None, x, plan, _where(device, {}), online=online)
 
     # The staged BuildPlan resolves everything static (device, threshold,
     # kernel geometry: a cache read, or a measurement on a --calibrate or
     # --tune miss) before touching the array; async warmup reads the plan's
     # regimes instead of guessing.
+    mesh_kw = _serve_mesh(args, spec, device)
     t0 = time.perf_counter()
-    plan = registry.plan_for_serving(args.engine, args.n, device, **kw)
+    plan = registry.plan_for_serving(args.engine, args.n, device, **mesh_kw, **kw)
     t_plan = time.perf_counter() - t0
     t0 = time.perf_counter()
     state = build_mod.execute(plan, x)
-    _sync(device)
+    for d in mesh_kw["mesh"].physical_devices if mesh_kw else (device,):
+        _sync(d)
     pspec = registry.packed_spec(state)
     thr = plan.meta.get("threshold")
     kcfg = plan.meta.get("kernel_config")
@@ -552,12 +617,13 @@ def _run_modes(args, spec, kw, device) -> bool:
         f"[{args.engine}] build {((time.perf_counter() - t0))*1e3:.1f} ms "
         f"(n={args.n}, {plan.layout.num_shards} structure shard(s) x "
         f"{plan.layout.shard_len} cols, layout "
-        f"{pspec.layout if pspec is not None else 'unpacked'}{msg}; "
+        f"{pspec.layout if pspec is not None else plan.meta.get('packed') or 'unpacked'}{msg}; "
         f"plan {t_plan*1e3:.1f} ms)"
     )
+    where = _where(device, mesh_kw)
     if args.mode == "oneshot":
-        return _run_oneshot(args, spec, state, x, rng, device)
-    return _run_async(args, spec, state, x, plan, device)
+        return _run_oneshot(args, spec, state, x, rng, where)
+    return _run_async(args, spec, state, x, plan, where)
 
 
 if __name__ == "__main__":

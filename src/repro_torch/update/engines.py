@@ -20,9 +20,9 @@ kernel.
 
 Every patched state is bit-identical to a from-scratch rebuild of the
 mutated array, leaf for leaf. Port of the single-host half of
-``repro/update/engines.py``; the mesh engines (``distributed``,
-``sharded_hybrid``, ``packed_sharded_hybrid``) come with the multi-device
-slice (ROADMAP.md queue 1, step 11).
+``repro/update/engines.py``; the online patches of the mesh engines
+(``distributed``, ``sharded_hybrid``, ``packed_sharded_hybrid``) come with
+ROADMAP.md queue 1, step 11b.
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ __all__ = [
     "online_names",
 ]
 
-# The reference's mesh engines: their online patches (``patch_sharded``,
-# the halo transport) come with the multi-device slice.
+# The mesh engines: their online patches (``patch_sharded``, the masked
+# halo repair) come with queue 1 step 11b.
 _MESH_ENGINES = ("distributed", "sharded_hybrid", "packed_sharded_hybrid")
 
 
@@ -574,7 +574,7 @@ class OnlineEngine:
         if name in _MESH_ENGINES:
             raise ValueError(
                 f"engine {name!r} is a mesh engine: its online updates come with the "
-                "multi-device engines (ROADMAP.md queue 1, step 11)"
+                "mesh patches (ROADMAP.md queue 1, step 11b)"
             )
         spec = registry.get(name)
         if not spec.updatable:

@@ -5,8 +5,10 @@ The 10 single-host cases of ``tests/test_calibration.py`` on the port
 miss / stale / corrupt in ``tmp_path`` files; the build policies), then
 parity with the reference: the same fake measurements give the same
 threshold from both packages' ``calibrate``, and the same stores give
-byte-identical cache files. The mesh cases wait for the multi-device
-engines (ROADMAP.md queue 1 step 11).
+byte-identical cache files. ``calibrate(mesh=...)`` is held here on a
+``(2, 4)`` CPU mesh and against the reference on a one-device mesh; the
+mesh cases of ``tests/test_calibration.py`` are in
+``tests/test_torch_sharded_hybrid.py``.
 """
 
 import json
@@ -175,9 +177,36 @@ def test_default_policies_touch_no_cache_and_no_file(monkeypatch, tmp_path):
     assert not (tmp_path / "never").exists()
 
 
-def test_calibrate_with_mesh_waits_for_the_multi_device_engines():
-    with pytest.raises(NotImplementedError, match="step 11"):
-        hybrid.calibrate(256, mesh=object(), device="cpu")
+@pytest.mark.parametrize("mode", ["shard_structure", "shard_batch", "shard_2d"])
+def test_calibrate_with_mesh_times_the_sharded_constituents(monkeypatch, mode):
+    """The mesh call builds the sharded hybrid on the mesh (threshold 0) and
+    times its two sharded paths on the mesh's home device; the same fake
+    measurements give the reference's threshold (its one-device mesh)."""
+    from repro.launch.mesh import make_mesh as jax_make_mesh
+    from repro_torch.launch.mesh import make_mesh
+
+    seen = []
+
+    def fake(kind, fn, lj, rj, repeats):
+        length = int((np.asarray(rj) - np.asarray(lj) + 1).max())
+        if kind == "long":
+            return 1.0
+        return 2.0 if length > 16 else 0.5
+
+    def port_fake(kind, fn, lj, rj, repeats):
+        seen.append((kind, lj.device.type, lj.dtype))
+        return fake(kind, fn, lj, rj, repeats)
+
+    monkeypatch.setattr(hybrid, "_measure", port_fake)
+    monkeypatch.setattr(jax_hybrid, "_measure", fake)
+    mesh = make_mesh((2, 4), ("data", "model"), devices="cpu")
+    thr = hybrid.calibrate(256, batch=8, repeats=1, mesh=mesh, mode=mode)
+    assert thr == int(_lengths(256)[_lengths(256) <= 16].max())
+    assert {k for k, *_ in seen} == {"short", "long"} and {d for _, d, _ in seen} == {"cpu"}
+    assert {t for *_, t in seen} == {torch.int32}
+    want = jax_hybrid.calibrate(256, batch=8, repeats=1, mesh=jax_make_mesh((1,), ("shard",)), mode=mode)
+    one = hybrid.calibrate(256, batch=8, repeats=1, mesh=make_mesh((1,), ("shard",), devices="cpu"), mode=mode)
+    assert want == one == thr
 
 
 def test_measure_takes_the_median_of_the_repeats():

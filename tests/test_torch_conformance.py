@@ -43,6 +43,11 @@ ENGINES = [
     "fused128_dma",
     "hybrid",
     "packed_hybrid",
+    # The mesh engines, on a one-shard CPU mesh beside the reference's
+    # one-device mesh (``build(x, device="cpu")``: ``default_mesh("cpu")``).
+    "distributed",
+    "sharded_hybrid",
+    "packed_sharded_hybrid",
 ]
 
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch import update
-from repro_torch.core import block_rmq, lane_rmq, ref
+from repro_torch.core import block_rmq, hybrid, lane_rmq, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
 from repro_torch.kernels.edge_batch import edge_batch, maxval_only
@@ -396,3 +396,74 @@ def test_durable_restore_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(idx.cpu().numpy(), gold)
     np.testing.assert_array_equal(val.cpu().numpy(), xm[gold])
     r.close()
+
+
+@pytest.mark.parametrize("packed", [None, "packed64"])
+@pytest.mark.parametrize("mode", ["shard_structure", "shard_batch", "shard_2d"])
+def test_sharded_hybrid_modes_on_card(cuda, mode, packed):
+    """Each mode of the sharded hybrid on a (2, 4) mesh of 8 shards on the
+    card: indices equal to the single-device hybrid's (its fused kernel) and
+    to the oracle, values to x[gold], answers on the card; the mesh queries
+    launch no kernel (they run the plain paths, as the reference's run no
+    Pallas kernel). Each structure shard has one copy on the card, shared
+    by the positions that sit there."""
+    from repro_torch.core import registry, sharded_hybrid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.workload import make_queries
+
+    rng = np.random.default_rng(18)
+    n = 1 << 18
+    x = rng.random(n, dtype=np.float32)
+    mesh = make_mesh((2, 4), ("data", "model"), devices=[cuda])
+    assert len(mesh.physical_devices) == 1 and mesh.physical_devices[0].type == "cuda"
+    hyb = registry.build_for_serving("hybrid", x, device=cuda)
+    s = sharded_hybrid.build(x, mesh, threshold=512, mode=mode, packed=packed)
+    for leaf in (s.blocked[0], s.st[0]):
+        assert leaf.num_shards == {"shard_structure": 8, "shard_batch": 1, "shard_2d": 2}[mode]
+        assert all(len(copies) == 1 for copies in leaf.copies)
+    for dist in ("small", "medium"):
+        l, r = make_queries(rng, n, 4099, dist)
+        want = hybrid.query(hyb, l, r)[0].cpu().numpy()
+        launches = fused_query.launches + block_min.launches + fused_query_packed.launches
+        idx, val = sharded_hybrid.query(s, l, r)
+        assert fused_query.launches + block_min.launches + fused_query_packed.launches == launches
+        gold = ref.rmq_ref(x, l, r)
+        assert idx.device.type == "cuda" and idx.dtype == torch.int32
+        np.testing.assert_array_equal(idx.cpu().numpy(), want)
+        np.testing.assert_array_equal(want, gold)
+        np.testing.assert_array_equal(val.cpu().numpy(), x[gold])
+
+
+def test_mesh_replicas_hold_no_extra_copy_on_card(cuda):
+    """At n = 2^22 on an 8-shard mesh of one card, neither shard_batch (the
+    structures replicated over 8 positions) nor shard_2d (replicated over
+    the 4 batch positions) peaks above 1.1 x shard_structure's build peak:
+    the positions on one card share one copy."""
+    import gc
+
+    from repro_torch.core import sharded_hybrid
+    from repro_torch.launch.mesh import make_mesh
+
+    x = np.random.default_rng(19).random(1 << 22, dtype=np.float32)
+    mesh = make_mesh((2, 4), ("data", "model"), devices=[cuda])
+    peaks = {}
+    for mode in ("shard_structure", "shard_batch", "shard_2d"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        s = sharded_hybrid.build(x, mesh, mode=mode)
+        torch.cuda.synchronize()
+        peaks[mode] = torch.cuda.max_memory_allocated()
+        del s
+    assert peaks["shard_batch"] <= 1.1 * peaks["shard_structure"], peaks
+    assert peaks["shard_2d"] <= 1.1 * peaks["shard_structure"], peaks
+
+
+def test_mesh_engines_serve_cli_on_card(cuda, capsys):
+    """--qshard 2d and --engine distributed on the card's default mesh."""
+    serve.main(["--engine", "sharded_hybrid", "--qshard", "2d", "--mode", "async", "--n", "65536",
+                "--clients", "2", "--requests", "4", "--req-batch", "64"])
+    out = capsys.readouterr().out
+    assert "verify: 8/8 requests bit-identical to the oracle" in out and "device(s) (cuda" in out
+    serve.main(["--engine", "distributed", "--n", "65536", "--batch", "1024", "--batches", "2"])
+    assert "verify[64] OK" in capsys.readouterr().out

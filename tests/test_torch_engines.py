@@ -135,8 +135,21 @@ MAXVAL_CASES = {
 MAXVAL_L = np.array([1, 2, 1])
 MAXVAL_R = np.array([2, 2, 1])
 # Engines whose masked lanes carry maxval and win the tie in the reference:
-# index 0.
-MAXVAL_FAULTY = ["block128", "block256", "lane", "exhaustive", "fused128", "fused128_dma", "hybrid"]
+# index 0. ``distributed`` and ``sharded_hybrid`` inherit it from the
+# reference's ``block_rmq.query`` on their shards (``sharded_hybrid``'s
+# sqrt(n) threshold sends these ranges to its blocked path);
+# ``packed_sharded_hybrid``'s packed words were never at fault.
+MAXVAL_FAULTY = [
+    "block128",
+    "block256",
+    "lane",
+    "exhaustive",
+    "fused128",
+    "fused128_dma",
+    "hybrid",
+    "distributed",
+    "sharded_hybrid",
+]
 
 
 @pytest.mark.parametrize("dtype", sorted(MAXVAL_CASES))

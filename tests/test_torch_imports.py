@@ -55,6 +55,9 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.fault.wal",
         "repro_torch.fault.durable",
         "repro_torch.fault.chaos",
+        "repro_torch.launch.mesh",
+        "repro_torch.core.distributed",
+        "repro_torch.core.sharded_hybrid",
     ):
         assert mod in res["imported"]
 
