@@ -130,6 +130,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    --mode async`` and ``--engine distributed`` on the card's default mesh
    (one shard). No kernel is launched (the mesh engines run the plain
    paths, as the reference's run no Pallas kernel);
+7e. online and durable mesh engines (``mesh_online_phase``) at
+   n = 2^26 - 71 float32 (odd, so every structure keeps padded columns)
+   and on the Euler depths, one engine at a time: ``update.make_online``
+   for ``sharded_hybrid`` in each mode on the ``(2, 4)`` mesh,
+   ``distributed`` (bs 1024) on ``(8,)`` and ``packed_sharded_hybrid``
+   packed32 on the Euler array, each through the reference child's four
+   logs scaled to n (a tie across the boundary of shards 0 and 1, a fill
+   over shards 0-2, an append of as many values as the padded capacity
+   holds, at most 50, and one of 9000 past it: a rebuild, but
+   ``shard_batch``'s host mirrors grow and patch); after each log 4096
+   `small` and 4096 `medium` queries held to the oracle of that version;
+   after the last patch and at the end every leaf equal to a fresh build of
+   the mutated array; per apply its ms, ``patched``, device operations
+   (``torch.profiler``) and peak bytes. Then ``DurableEngine`` on ``(8,)``
+   for ``sharded_hybrid`` and ``distributed``: three logs, a checkpoint
+   after the first (the array only: its bytes and seconds), a restore that
+   replays two (seconds), leaf for leaf equal to the live engine; under
+   ``build/durable/``, removed at the end. No kernel is launched;
+7f. the fleet (``fleet_phase``) at n = 2^24 (``N_FLEET``: three replicas
+   each hold a whole structure): ``run_fleet_soak`` on ``hybrid`` (3
+   durable replicas, ``max_lag`` 2, 8 updates over 240 requests of 256
+   queries, an injected mid-rollout crash and an external crash +
+   restore), then on ``sharded_hybrid`` with 8 positions of the card (3
+   replicas x 2); lost requests, mismatches and read-your-writes
+   violations must be 0 and the lag within ``max_lag``; each prints its
+   rollouts' time to the first and to the last publish, request p50/p99
+   and the peak bytes. Then the serve CLI's ``--engine hybrid --mode async
+   --replicas 3 --max-lag 2 --mutate 4`` (4 clients x 32 x 256 `small`
+   at 200/s each), every request verified. No kernel is launched;
 8. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -165,6 +194,9 @@ FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
 N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: both fetches timed and served here
 EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
+# Phase 7f's array: three replicas each hold a whole structure, and an online
+# hybrid at 2^26 peaks at 16.2 GB and repairs each batch on the host for 5-9 s.
+N_FLEET = 1 << 24
 # Phase 7b's routing threshold: about the median `small` length at n = 2^26
 # (n^0.3 = 222), so the online hybrid's blocked path and its sparse table
 # each take part of every launch.
@@ -663,6 +695,304 @@ def mesh_phase(torch, np, dev, drive, check) -> None:
     drive("serve CLI mesh engines 2^26", mesh_cli, none=True)
     fresh()
     print(f"[phase] mesh engines took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _mesh_leaves(tree):
+    """[(path, ShardedLeaf)] of a mesh structure, depth first in field order."""
+    out = []
+
+    def walk(t, path):
+        if hasattr(t, "copies"):  # core.distributed.ShardedLeaf
+            out.append((path, t))
+        elif isinstance(t, tuple):
+            for i, v in enumerate(t):
+                walk(v, f"{path}.{getattr(t, '_fields', range(len(t)))[i]}")
+
+    walk(tree, "s")
+    return out
+
+
+def _same_mesh_leaves(torch, want, got, label: str) -> None:
+    """Two mesh structures equal leaf for leaf and shard for shard, dtypes
+    included, values bit for bit (compared on the card, shard by shard)."""
+    a, b = _mesh_leaves(want), _mesh_leaves(got)
+    _require([p for p, _ in a] == [p for p, _ in b] and a, f"{label}: leaf paths differ")
+    for (path, x), (_, y) in zip(a, b):
+        _require(x.dtype == y.dtype and x.shape == y.shape and x.num_shards == y.num_shards,
+                 f"{label}: {path} is {y.dtype} {y.shape}, a fresh build's is {x.dtype} {x.shape}")
+        for s in range(x.num_shards):
+            p, q = x.part(s), y.part(s)
+            if p.dtype == torch.float32:
+                p, q = p.view(torch.int32), q.view(torch.int32)
+            _require(torch.equal(p, q), f"{label}: {path} shard {s} differs from a fresh build")
+
+
+def mesh_online_phase(torch, np, dev, drive, check, root) -> None:
+    """Phase 7e: online and durable mesh engines at n = 2^26 - 71 on 8 shards
+    of one card, one engine at a time.
+
+    Each engine goes online (``update.make_online(mesh=)``) and takes the
+    reference child's four logs scaled to n: a leftmost tie across the
+    shard boundary at 2^25, a fill over shards 0-2, an append inside the
+    padded capacity (as many values as fit, at most 50) and one of 9000
+    past it (a rebuild, ``patched=False``; ``shard_batch``'s host mirrors
+    grow and patch instead). After each log 4096 `small` and 4096 `medium`
+    queries are held to the oracle of that version; after the last patch
+    and at the end the leaves equal a from-scratch build of the mutated
+    array. Per apply: ms, ``patched``, device operations (kernels and
+    copies, from ``torch.profiler``) and peak bytes. Then ``DurableEngine``
+    on the (8,) mesh: three logs, a checkpoint after the first, a restore
+    that replays two and equals the live leaves."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import update
+    from repro_torch.core import build as build_mod
+    from repro_torch.core import distributed
+    from repro_torch.fault import DurableEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.workload import make_queries
+
+    t_phase = time.perf_counter()
+    n = N_MAIN - 71  # odd: every structure keeps at least one padded column
+    x = np.random.default_rng(0).random(n, dtype=np.float32)
+    euler = euler_depths(EULER_HEIGHT)
+    mesh24 = make_mesh((2, 4), ("data", "model"))
+    mesh8 = make_mesh((8,), ("shard",))
+    print(f"[mesh-online] n = {n} (2^26 - 71) float32 and the Euler depths (n = {euler.size}); {mesh24!r}; {mesh8!r}")
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def room(name, state, n_now):
+        """Values an append may add inside the padded capacity (the
+        engines' own rule); shard_batch's mirrors grow: unbounded."""
+        if name == "distributed":
+            nb, bs = state[0].x_blocks.shape
+            return nb * bs - n_now
+        if state.mode == "shard_batch":
+            return 1 << 30
+        blocked = state.blocked.blocks if state.spec is not None else state.blocked.x_blocks
+        cols = state.st.words.shape[1] if state.spec is not None else state.st.idx.shape[1]
+        return min(blocked.shape[0] * blocked.shape[1], cols) - n_now
+
+    def state_spec(state):
+        return getattr(state, "spec", None)
+
+    def shard_cols(name, state):
+        """Columns per structure shard of the sparse table (distributed:
+        of the blocked chunk; shard_batch, whose structures are whole on
+        every position: an eighth of n)."""
+        if name == "distributed":
+            return state[0].x_blocks.part(0).numel()
+        if state.mode == "shard_batch":
+            return -(-state.n // 8)
+        return (state.st.words if state.spec is not None else state.st.idx).part(0).shape[-1]
+
+    def logs(x0, state, name, rng):
+        int_data = x0.dtype == np.int32
+        tie, fill = (0, 1) if int_data else (-7.0, 0.25)
+        k = min(50, room(name, state, x0.size))
+        c = shard_cols(name, state)
+        tail = lambda m: (rng.integers(0, 2, m).astype(np.int32) if int_data else rng.random(m, dtype=np.float32))
+        out = [(f"tie across the shard boundary at column {c}", update.DeltaLog().point(c - 1, tie).point(c, tie)),
+               ("fill over shards 0-2", update.DeltaLog().fill(c - c // 8, min(2 * c + c // 8, x0.size - 1), fill))]
+        out.append((f"append {k} inside the capacity", update.DeltaLog().append(tail(k))) if k > 0 else None)
+        if state_spec(state) is not None and state.spec.layout == "packed32" and x0.size + 9000 > (1 << 26):
+            # Past 2^26 the index field takes 27 bits and this key span 5
+            # more: no packed32 spec holds it, and the rebuild raises (in
+            # the reference too; tests/test_torch_sharded_hybrid.py pins it).
+            print(f"[mesh-online] packed32: no append past the capacity (n > 2^26 needs 27 index bits "
+                  f"beside a {state.spec.val_bits}-bit key field's span)")
+        else:
+            out.append(("append 9000 past the capacity", update.DeltaLog().append(tail(9000))))
+        return [o for o in out if o is not None]
+
+    def fresh_build(name, online, xm, mesh, kw):
+        st = online.store.current.state
+        if name == "distributed":
+            plan = build_mod.plan_for("distributed", xm.size, mesh=mesh, axis_names=mesh.axis_names,
+                                      block_size=kw["block_size"])
+            return build_mod.execute(plan, xm)[0], st[0]
+        if st.spec is not None:  # under the engine's spec, which patches keep
+            axes = mesh.axis_names
+            return ((distributed.build_sharded_packed(xm, mesh, axes, 128, st.spec),
+                     distributed.build_sharded_st_packed(xm, mesh, axes, st.spec)), (st.blocked, st.st))
+        plan = build_mod.plan_for("sharded_hybrid", xm.size, mesh=mesh, axis_names=mesh.axis_names, block_size=128,
+                                  threshold=int(st.threshold), mode=kw["mode"])
+        f = build_mod.execute(plan, xm)
+        return (f.blocked, f.st), (st.blocked, st.st)
+
+    def online_engine(label, name, mesh, kw, x0):
+        def run():
+            fresh()
+            t0 = time.perf_counter()
+            eng = update.make_online(name, x0, mesh=mesh, axis_names=mesh.axis_names, **kw)
+            print(f"[mesh-online] {label}: online build {time.perf_counter() - t0:.2f} s, "
+                  f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+            xm = x0.copy()
+            qrng = np.random.default_rng(22)
+            sched = logs(x0, eng.store.current.state, name, np.random.default_rng(23))
+            for i, (what, log) in enumerate(sched):
+                torch.cuda.reset_peak_memory_stats()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    res = eng.apply(log)
+                events = prof.key_averages()
+                ops = sum(e.count for e in events)
+                busy = sum(e.self_device_time_total for e in events) / 1e3
+                xm = log.coalesce(xm.size, xm.dtype).apply_numpy(xm)
+                print(f"[mesh-online]   {label} {what}: {'patched' if res.patched else 'rebuilt'} in "
+                      f"{res.seconds * 1e3:.1f} ms (device busy {busy:.2f} ms), {ops} device ops "
+                      f"(kernels and copies), {res.touched_shards} touched shard(s), max_memory_allocated "
+                      f"{torch.cuda.max_memory_allocated()} B")
+                if what.startswith("append 9000"):
+                    mirrors = kw.get("mode") == "shard_batch"  # host mirrors grow: a patch
+                    _require(res.patched == mirrors, f"{label}: {what} reported patched={res.patched}")
+                else:
+                    _require(res.patched, f"{label}: {what} did not patch")
+                sets = [make_queries(qrng, xm.size, 4096, dist) for dist in ("small", "medium")]
+                l, r = (np.concatenate(a) for a in zip(*sets))
+                ver = eng.pin()
+                try:
+                    idx, val = eng.query(ver.state, l, r)
+                finally:
+                    eng.release(ver.vid)
+                check(f"{label} v{ver.vid} small + medium", xm, l, r, idx, val)
+                if i >= len(sched) - 2:  # the last patch, then the end
+                    want, got = fresh_build(name, eng, xm, mesh, kw)
+                    _same_mesh_leaves(torch, want, got, f"{label} after {what}")
+                    del want, got
+            print(f"[mesh-online]   {label}: every version's 8192 queries equal to its oracle; the last patch "
+                  f"and the final state equal a fresh build leaf for leaf")
+            del eng
+            fresh()
+        return run
+
+    runs = [
+        ("sharded_hybrid shard_structure (2, 4)", "sharded_hybrid", mesh24, {"mode": "shard_structure"}, x),
+        ("sharded_hybrid shard_batch (2, 4)", "sharded_hybrid", mesh24, {"mode": "shard_batch"}, x),
+        ("sharded_hybrid shard_2d (2, 4)", "sharded_hybrid", mesh24, {"mode": "shard_2d"}, x),
+        ("distributed bs 1024 (8,)", "distributed", mesh8, {"block_size": 1024}, x),
+        ("packed_sharded_hybrid packed32 Euler (2, 4)", "packed_sharded_hybrid", mesh24, {"packed": "packed32"}, euler),
+    ]
+    for label, name, mesh, kw, x0 in runs:
+        drive(f"online {label}", online_engine(label, name, mesh, kw, x0), none=True)
+
+    durable_dir = root / "build" / "durable"
+    shutil.rmtree(durable_dir, ignore_errors=True)
+    durable_dir.mkdir(parents=True)
+
+    def durable_mesh():
+        for label, name, kw in (("sharded_hybrid shard_structure", "sharded_hybrid", {"mode": "shard_structure"}),
+                                ("distributed bs 1024", "distributed", {"block_size": 1024})):
+            fresh()
+            d_root = durable_dir / name
+            t0 = time.perf_counter()
+            d = DurableEngine.create(name, x, str(d_root), mesh=mesh8, axis_names=mesh8.axis_names, **kw)
+            t_create = time.perf_counter() - t0
+            xm = x.copy()
+            for i, (what, log) in enumerate(logs(x, d.store.current.state, name, np.random.default_rng(24))[:3]):
+                d.apply(log)
+                xm = log.coalesce(xm.size, xm.dtype).apply_numpy(xm)
+                if i == 0:
+                    t0 = time.perf_counter()
+                    meta = d.checkpoint()
+                    t_ck = time.perf_counter() - t0
+                    step = d_root / "ckpt" / f"step_{meta['seq']:08d}"
+                    ck_bytes = sum(f.stat().st_size for f in step.iterdir())
+            t0 = time.perf_counter()
+            r = DurableEngine.restore(str(d_root), mesh=mesh8, axis_names=mesh8.axis_names)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            _require((r.current_vid, r.seq, r.replayed) == (d.current_vid, d.seq, 2),
+                     f"durable {label}: restored v{r.current_vid} seq {r.seq} ({r.replayed} replayed)")
+            live = d.store.current.state
+            back = r.store.current.state
+            pick = (lambda s: s[0]) if name == "distributed" else (lambda s: (s.blocked, s.st))
+            _same_mesh_leaves(torch, pick(live), pick(back), f"durable {label} restore")
+            l, rr = make_queries(np.random.default_rng(25), xm.size, 4096, "medium")
+            ver = r.pin()
+            idx, val = r.query(ver.state, l, rr)
+            r.release(ver.vid)
+            check(f"durable {label} restored", xm, l, rr, idx, val)
+            print(f"[mesh-durable] {label} on (8,): create {t_create:.2f} s (base checkpoint included); "
+                  f"checkpoint {t_ck:.3f} s, {ck_bytes} B on disk (the array); restore {t_restore:.2f} s, "
+                  f"2 records replayed, leaves equal to the live engine's; "
+                  f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+            d.close(), r.close()
+            del d, r, live, back
+            fresh()
+
+    try:
+        drive("durable mesh engines (8,), 2^26", durable_mesh, none=True)
+    finally:
+        shutil.rmtree(durable_dir, ignore_errors=True)
+    print(f"[phase] online and durable mesh engines took {time.perf_counter() - t_phase:.1f} s")
+
+
+def fleet_phase(torch, np, dev, drive, root) -> None:
+    """Phase 7f: the replica fleet at n = 2^24 float32 on the card.
+
+    ``run_fleet_soak`` (durable, 3 replicas, ``max_lag`` 2, 8 updates, 240
+    requests of 256 queries, an injected mid-rollout crash and an external
+    crash + restore, every answer held to its version's oracle) on
+    ``hybrid``, then on ``sharded_hybrid`` with 8 positions of the card
+    (3 replicas x 2 positions); then the serve CLI's ``--replicas 3
+    --max-lag 2 --mutate 4``. The replicas launch no kernel (online
+    hybrids pin the plain short path; the mesh engines run the plain
+    paths)."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.fleet import run_fleet_soak
+
+    t_phase = time.perf_counter()
+    n = N_FLEET
+    durable_dir = root / "build" / "durable"
+    shutil.rmtree(durable_dir, ignore_errors=True)
+    durable_dir.mkdir(parents=True)
+
+    def soak(label, **kw):
+        def run():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            report = run_fleet_soak(replicas=3, n=n, requests=240, updates=8, qbatch=256, seed=0, max_lag=2,
+                                    root=str(durable_dir / label.split()[0]), **kw)
+            print(f"[fleet] {label}, n = {n}: {report.summary()}")
+            print(f"[fleet]   {report.latency_summary()}; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} B")
+            _require(report.ok, f"fleet soak {label}: {report.summary()}")
+            _require(report.crashes >= 2 and report.restores >= 2, f"fleet soak {label}: too few crashes")
+        return run
+
+    try:
+        drive("fleet soak hybrid x3, 2^24", soak("hybrid x3", engine="hybrid", device=dev), none=True)
+        drive("fleet soak sharded_hybrid x3 (2 positions each), 2^24",
+              soak("sharded_hybrid x3, 2 positions each", engine="sharded_hybrid", devices=[dev] * 8), none=True)
+    finally:
+        shutil.rmtree(durable_dir, ignore_errors=True)
+
+    def fleet_cli():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--engine", "hybrid", "--mode", "async", "--replicas", "3", "--max-lag", "2",
+                        "--mutate", "4", "--n", str(n), "--clients", "4", "--requests", "32", "--req-batch", "256",
+                        "--rate", "200", "--dist", "small"])
+        text = buf.getvalue()
+        print(text, end="")
+        print(f"[fleet] CLI max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        _require("verify: 128/128 requests bit-identical" in text and "settled=True" in text,
+                 "the fleet CLI did not verify every request")
+
+    drive("serve CLI --replicas 3 --mutate 4, 2^24", fleet_cli, none=True)
+    print(f"[phase] fleet took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1694,6 +2024,12 @@ def _main() -> int:
 
     # --- phase 7d: the mesh engines -----------------------------------------
     mesh_phase(torch, np, dev, drive, check)
+
+    # --- phase 7e: online and durable mesh engines --------------------------
+    mesh_online_phase(torch, np, dev, drive, check, root)
+
+    # --- phase 7f: the replica fleet ----------------------------------------
+    fleet_phase(torch, np, dev, drive, root)
 
     # --- phase 8: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"

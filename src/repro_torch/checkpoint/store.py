@@ -12,8 +12,10 @@ nest of dicts, lists, tuples and NamedTuples, flattened in
 written ``['name']``, sequence items ``[i]``, NamedTuple fields ``.name``),
 and tensors are saved as numpy arrays of the same dtype. So either package
 restores the other's checkpoints. ``restore`` puts the leaves back as
-tensors on ``device``; mesh shardings come with the mesh engines' online
-patches (ROADMAP.md queue 1, step 11b).
+tensors on ``device``, or (``shardings=``, the reference's elastic restore)
+each leaf where its placement says: a ``torch.device``, or a
+``core.distributed.Placement`` that splits it over a mesh axis, whatever
+mesh the restoring job has.
 
 Async: ``save(..., background=True)`` copies to host memory synchronously
 and writes to disk on a daemon thread.
@@ -21,6 +23,7 @@ and writes to disk on a daemon thread.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -225,23 +228,38 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
     """Load a checkpoint into the structure of ``like``, every leaf a tensor
     on ``device`` (``None``: CUDA).
 
-    ``shardings`` (the reference's elastic restore onto a mesh) comes with
-    the mesh engines' online patches (step 11b) and raises here.
+    ``shardings``: optional tree matching ``like`` whose leaves are each a
+    ``torch.device`` (the whole leaf there) or a
+    ``core.distributed.Placement`` (the leaf split into a ``ShardedLeaf``
+    over a mesh axis) — elastic restore onto whatever mesh the restarted
+    job has; ``device`` is then unused.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves on a mesh, which comes with the "
-            "mesh engines' online patches (ROADMAP.md queue 1, step 11b)"
-        )
-    dev = resolve(device)
     path = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {e["key"]: e for e in manifest["leaves"]}
+    flat = _flatten(like)
+    if shardings is None:
+        dev = resolve(device)
+        places = [lambda a: torch.from_numpy(a).to(dev)] * len(flat)
+    else:
+        targets = _flatten(shardings)
+        for k, ks in itertools.zip_longest([k for k, _ in flat], [k for k, _ in targets]):
+            if k != ks:
+                raise ValueError(f"shardings leaves differ from the tree's: {ks} where the tree has {k}")
+        places = [_placer(t) for _, t in targets]
     leaves = []
-    for k, ref in _flatten(like):
+    for (k, ref), place in zip(flat, places):
         a = np.load(os.path.join(path, by_key[k]["file"]))
         if a.shape != _shape(ref):
             raise ValueError(f"checkpoint leaf {k} has shape {a.shape}, the tree wants {_shape(ref)}")
-        leaves.append(torch.from_numpy(a).to(dev))
+        leaves.append(place(a))
     return _unflatten(like, iter(leaves))
+
+
+def _placer(target) -> Callable:
+    """``numpy array -> leaf`` for one ``shardings`` leaf."""
+    if hasattr(target, "place"):  # core.distributed.Placement
+        return lambda a: target.place(torch.from_numpy(a))
+    dev = resolve(target)
+    return lambda a: torch.from_numpy(a).to(dev)

@@ -110,18 +110,21 @@ def hybrid(h, device=None, *, use_kernels: bool | None = None) -> _hybrid.Hybrid
     )
 
 
-def online_engine(arrays, meta, device=None):
+def online_engine(arrays, meta, device=None, *, mesh=None, axis_names=None):
     """An ``update.OnlineEngine`` resumed from ``OnlineEngine.snapshot()``
     output of either package: ``arrays`` (numpy leaves by name) and the JSON
     ``meta`` (engine, vid, n, dtype, build kwargs), unchanged. The engine
     continues at the snapshot's version id with the same answers and
-    leaves; its mirrors are the snapshot's arrays, so no argmin is rebuilt.
+    leaves; a single-device engine's mirrors are the snapshot's arrays, so
+    no argmin is rebuilt. A mesh engine's snapshot is its array only: it is
+    rebuilt on ``mesh`` (over ``axis_names``) with the snapshot's pinned
+    build kwargs.
     """
     from repro_torch.update import OnlineEngine
 
     if int(meta["n"]) != np.asarray(arrays["x"]).shape[0]:
         raise ValueError(f"snapshot meta says n={meta['n']}, its x has {np.asarray(arrays['x']).shape[0]}")
-    return OnlineEngine.from_snapshot(arrays, meta, device=device)
+    return OnlineEngine.from_snapshot(arrays, meta, device=device, mesh=mesh, axis_names=axis_names)
 
 
 # --- mesh structures ---------------------------------------------------------

@@ -13,7 +13,9 @@ per-shard results (``pmin``: a reduction over the shard axis;
 a ``ShardedLeaf``: one tensor per structure shard, with one copy on each
 device that serves the shard, shared by the mesh positions that sit on that
 device. ``ShardedLeaf.full()`` concatenates the global view the reference's
-``PartitionSpec`` describes; no query path uses it.
+``PartitionSpec`` describes; no query path uses it. ``Placement`` is the
+port's ``NamedSharding``: how ``split_leaf`` lays a global array over a
+mesh axis (``checkpoint.restore(shardings=)`` takes it).
 
 Three distribution strategies, as in the reference:
 
@@ -32,13 +34,15 @@ slices in one call. The column-sharded doubling table (``ShardedSparseTable``)
 is built per shard with a level-k halo exchange of boundary columns
 (``st_local_level0`` + ``st_halo_doubling``), each level written into a
 preallocated ``(K, C)`` table per shard, so no device ever holds the full
-``(K, n)`` table. Port of the build and query half of
-``repro/core/distributed.py``; its online patches come with queue 1 step
-11b.
+``(K, n)`` table. The online patches (``patch_sharded``,
+``patch_sharded_st`` and their packed twins) repair each shard's windows
+copy-on-write through the same halo transport. Port of
+``repro/core/distributed.py``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +55,7 @@ from .block_rmq import BlockRMQ, PackedBlockRMQ, maxval
 from .sparse_table import PackedSparseTable, SparseTable
 
 __all__ = [
+    "Placement",
     "ShardedLeaf",
     "ShardedSparseTable",
     "build_replicated",
@@ -68,6 +73,10 @@ __all__ = [
     "make_st_query_fn",
     "num_shards",
     "pack_global",
+    "patch_sharded",
+    "patch_sharded_packed",
+    "patch_sharded_st",
+    "patch_sharded_st_packed",
     "shard",
     "shard_devices",
     "shard_rows",
@@ -205,6 +214,21 @@ def split_leaf(a, mesh, axis_names: Sequence[str], dim: int = 0) -> ShardedLeaf:
     if len(pieces) != len(devs) or len({p.shape[dim] for p in pieces}) != 1:
         raise ValueError(f"dimension {dim} of shape {tuple(t.shape)} does not split into {len(devs)} equal shards")
     return ShardedLeaf(({d: p.contiguous().to(d) for d in ds} for p, ds in zip(pieces, devs)), dim)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a global array goes on a mesh: split into equal shards over
+    ``axis_names`` along ``dim`` (``()``: replicated), the port's
+    counterpart of the reference's ``NamedSharding``. Not a tuple, so a
+    tree of placements flattens with one leaf per placement."""
+
+    mesh: object
+    axis_names: Tuple[str, ...] = ()
+    dim: int = 0
+
+    def place(self, a) -> ShardedLeaf:
+        return split_leaf(a, self.mesh, tuple(self.axis_names), self.dim)
 
 
 # Concatenation dimension of every leaf in the global view: the reference's
@@ -434,34 +458,32 @@ def st_local_level0(xp: ShardedLeaf, mesh, axis_names: Sequence[str]):
     return ShardedLeaf(idx, 0), xp
 
 
-def _flat_shift(rows: list, s: int, d: int):
-    """The row held by the shard ``d`` places right of shard ``s`` in
-    flattened order; ``None`` off the grid (the reference's zeros: every
-    column read from there lies past ``n_pad`` and takes the tail clamp)."""
-    return rows[s + d] if s + d < len(rows) else None
-
-
-def _window(rows: list, s: int, h: int, last: torch.Tensor, device) -> torch.Tensor:
-    """Columns ``[s*C + h, s*C + h + C)`` of the previous level's global
-    row, read from the shards that own them (the halo) onto ``device``;
-    columns past ``n_pad`` take the row's last column (the tail clamp)."""
+def _columns(rows: list, lo: int, hi: int, last: torch.Tensor, device) -> torch.Tensor:
+    """Global columns ``[lo, hi)`` of a row split into equal shards
+    (``rows[s]`` on its own device), read from the shards that own them (the
+    halo) onto ``device``; columns past the end take ``last`` (the tail
+    clamp)."""
     shard_len = rows[0].shape[0]
-    d, rem = divmod(h, shard_len)
+    n_pad = shard_len * len(rows)
     pieces = []
-    for dd, lo, hi in ((d, rem, shard_len), (d + 1, 0, rem)):
-        if hi > lo:
-            src = _flat_shift(rows, s, dd)
-            pieces.append(src[lo:hi].to(device) if src is not None else last.to(device).expand(hi - lo))
+    c = lo
+    while c < min(hi, n_pad):
+        s, off = divmod(c, shard_len)
+        e = min(hi, (s + 1) * shard_len)
+        pieces.append(rows[s][off : off + e - c].to(device))
+        c = e
+    if hi > max(lo, n_pad):
+        pieces.append(last.to(device).expand(hi - max(lo, n_pad)))
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
 def _halo_levels(tables: list, n_pad: int, pick: Callable) -> None:
     """Fill rows 1..K-1 of every shard's ``(K, C)`` planes (row 0 filled):
     level k merges the previous row with itself shifted left by
-    ``h = 2^(k-1)``, whose window for shard ``s`` lies in shards ``s + h//C``
-    and ``s + h//C + 1``. ``pick(prev, win, out)`` writes one level of one
+    ``h = 2^(k-1)``, whose columns for shard ``s`` lie in shards ``s + h//C``
+    and ``s + h//C + 1`` (past the last shard: the tail clamp). ``pick(prev, win, out)`` writes one level of one
     shard from per-plane rows."""
-    k_levels = tables[0][0].shape[0]
+    k_levels, shard_len = tables[0][0].shape
     for k in range(1, k_levels):
         h = 1 << (k - 1)
         if h >= n_pad:  # the window spans the whole array: rows repeat
@@ -473,7 +495,8 @@ def _halo_levels(tables: list, n_pad: int, pick: Callable) -> None:
         last = [rows[-1][-1] for rows in prev]
         for s, planes in enumerate(tables):
             dev = planes[0].device
-            win = [_window(rows, s, h, last[j], dev) for j, rows in enumerate(prev)]
+            c0 = s * shard_len
+            win = [_columns(rows, c0 + h, c0 + h + shard_len, last[j], dev) for j, rows in enumerate(prev)]
             pick([rows[s] for rows in prev], win, [p[k] for p in planes])
 
 
@@ -724,3 +747,232 @@ def make_packed_st_query_fn(mesh, axis_names: Sequence[str], spec, *, batch_shar
         return packing.unpack_idx(spec, wm), packing.unpack_val(spec, wm)
 
     return _sharded_query(mesh, axis_names, batch_axes, local_query, merge)
+
+
+# --- online patches (the update subsystem's mesh side) ------------------------
+#
+# ``repro_torch.update`` mutates mesh structures under live traffic. Each
+# structure shard takes the updates it owns, repairs only its touched blocks,
+# and re-runs the doubling recurrence over the affected column window of
+# every level: a level-k entry at column c covers [c, c + 2^k), so only
+# c in [mn - 2^k + 1, mx] can change (mn, mx: the hull of the updates).
+# Windows that straddle shards read the neighbours' patched previous-level
+# row through the build's halo transport (``_columns``). Copy-on-write: a
+# shard whose window is empty at every level keeps its tensors, shared with
+# the previous version (which pinned readers may still hold); a shard that
+# changes gets clones with its windows written into them. Every result is
+# leaf for leaf equal to a from-scratch build of the mutated array.
+
+
+def _updates(upd_pos, upd_val):
+    """The coalesced changed positions (int64) and their values, on the host."""
+    pos = np.asarray(upd_pos, np.int64)
+    if pos.size == 0:
+        raise ValueError("patch called with no updates")
+    return pos, np.asarray(upd_val)
+
+
+def _owned(pos: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """Mask of the positions in ``[lo, hi)``."""
+    return (pos >= lo) & (pos < hi)
+
+
+def _scatter(row: torch.Tensor, local: np.ndarray, values: np.ndarray) -> None:
+    """``row[local] = values`` on ``row``'s device, in ``row``'s dtype."""
+    idx = torch.from_numpy(local).to(row.device)
+    row[idx] = torch.as_tensor(values).to(device=row.device, dtype=row.dtype)
+
+
+def _patch_levels(tables: list, pos: np.ndarray, level0: list, pick: Callable) -> list:
+    """Copy-on-write windowed repair of column-sharded ``(K, C)`` planes.
+
+    ``tables[s]`` is shard ``s``'s tuple of planes; ``level0[j]`` the new
+    level-0 values of plane ``j`` at ``pos`` (``None``: a plane whose level 0
+    never changes); ``pick(prev, win, out)`` one level's merge, as in the
+    build. Returns the per-shard planes of the next version: the same tuple
+    for an untouched shard, clones for a changed one.
+    """
+    num = len(tables)
+    k_levels, shard_len = tables[0][0].shape
+    n_pad = num * shard_len
+    mn, mx = int(pos.min()), int(pos.max())
+    reach = mn - ((1 << (k_levels - 1)) - 1)  # the top level's window start
+    new, changed = [], []
+    for s, planes in enumerate(tables):
+        c0 = s * shard_len
+        if c0 > mx or c0 + shard_len - 1 < reach:
+            new.append(planes)
+            continue
+        planes = tuple(p.clone() for p in planes)
+        own = _owned(pos, c0, c0 + shard_len)
+        if own.any():
+            for p, vals in zip(planes, level0):
+                if vals is not None:
+                    _scatter(p[0], pos[own] - c0, vals[own])
+        new.append(planes)
+        changed.append(s)
+    for k in range(1, k_levels):
+        h = 1 << (k - 1)
+        if h >= n_pad:  # the window spans the whole array: rows repeat
+            for s in changed:
+                for p in new[s]:
+                    p[k] = p[k - 1]
+            continue
+        prev = [[planes[j][k - 1] for planes in new] for j in range(len(new[0]))]
+        last = [rows[-1][-1] for rows in prev]
+        lo = mn - ((1 << k) - 1)
+        for s in changed:
+            c0 = s * shard_len
+            a, b = max(c0, lo), min(c0 + shard_len - 1, mx)
+            if a > b:
+                continue
+            dev = new[s][0].device
+            cur = [rows[s][a - c0 : b - c0 + 1] for rows in prev]
+            win = [_columns(rows, a + h, b + h + 1, last[j], dev) for j, rows in enumerate(prev)]
+            pick(cur, win, [p[k, a - c0 : b - c0 + 1] for p in new[s]])
+    return new
+
+
+def _planes(leaves) -> list:
+    """Per structure shard, the tuple of its tensors of ``leaves``."""
+    return [tuple(leaf.part(s) for leaf in leaves) for s in range(leaves[0].num_shards)]
+
+
+def _rejoin(planes: list, fields) -> tuple:
+    """``ShardedLeaf``s like ``fields`` from the patched
+    per-shard planes: an untouched shard keeps its copies; a changed one is
+    copied from its build device to the rest of its devices."""
+    out = []
+    for j, leaf in enumerate(fields):
+        copies = []
+        for s, planes_s in enumerate(planes):
+            t = planes_s[j]
+            if t is leaf.part(s):
+                copies.append(leaf.copies[s])
+            else:
+                copies.append({d: t if t.device == d else t.to(d) for d in leaf.copies[s]})
+        out.append(ShardedLeaf(copies, leaf.dim))
+    return tuple(out)
+
+
+def patch_sharded_st(t: ShardedSparseTable, upd_pos, upd_val, mesh, axis_names: Sequence[str]) -> ShardedSparseTable:
+    """Patch the column-sharded doubling table in place of a rebuild.
+
+    ``upd_pos``/``upd_val`` are the coalesced changed positions and values
+    (host arrays; appends within the padded capacity are updates at pad
+    columns). Per level the doubling recurrence re-runs over the affected
+    window with the leftmost-tie pick (``val <= wv``), reading the patched
+    previous level of the shards to the right where a window straddles them.
+    Equal to ``build_sharded_st`` on the mutated array, with no device ever
+    holding the full table.
+    """
+    del mesh, axis_names  # the shards of t already sit where they are patched
+    pos, val = _updates(upd_pos, upd_val)
+    planes = _patch_levels(_planes((t.idx, t.val)), pos, [None, val], _pick_left)
+    return ShardedSparseTable(*_rejoin(planes, (t.idx, t.val)))
+
+
+def _patch_block_levels(st_idx: torch.Tensor, lo: int, hi: int, merge: Callable) -> None:
+    """Windowed repair, in place, of a shard-local ``(K, nb)`` doubling table
+    over block minima whose touched blocks span ``[lo, hi]``: level k
+    rewrites columns ``[lo - 2^k + 1, hi]`` with ``merge(cur, shifted)``,
+    the shift tail-clamped to the last column (per-shard tables never cross
+    their chunk, so there is no transport)."""
+    k_levels, nb = st_idx.shape
+    for k in range(1, k_levels):
+        h = 1 << (k - 1)
+        if h >= nb:
+            st_idx[k] = st_idx[k - 1]
+            continue
+        a = max(0, lo - ((1 << k) - 1))
+        row = st_idx[k - 1]
+        shifted = _columns([row], a + h, hi + h + 1, row[-1], row.device)
+        st_idx[k, a : hi + 1] = merge(row[a : hi + 1], shifted)
+
+
+def patch_sharded(s: BlockRMQ, upd_pos, upd_val, mesh, axis_names: Sequence[str]) -> BlockRMQ:
+    """Patch the mesh-sharded blocked structure in place of a rebuild.
+
+    Each shard scatters the updates it owns into a clone of its chunk,
+    re-takes the leftmost minimum of each touched block once
+    (``block_rmq.leftmost_min``, the build's own), and window-patches its
+    local block-min doubling table. Shards owning no update keep their
+    tensors. Equal to ``build_sharded`` on the mutated array, leaf for leaf.
+    """
+    del mesh, axis_names
+    pos, val = _updates(upd_pos, upd_val)
+    nb, bs = s.x_blocks.part(0).shape
+    local_n = nb * bs
+    fields = (s.x_blocks, s.bmin_val, s.bmin_gidx, s.st.idx)
+    planes = []
+    for sh, (xb, bv, bg, si) in enumerate(_planes(fields)):
+        own = _owned(pos, sh * local_n, (sh + 1) * local_n)
+        if not own.any():
+            planes.append((xb, bv, bg, si))
+            continue
+        lp = pos[own] - sh * local_n
+        xb, bv, bg, si = xb.clone(), bv.clone(), bg.clone(), si.clone()
+        _scatter(xb.view(-1), lp, val[own])
+        tb = np.unique(lp // bs)
+        tbt = torch.from_numpy(tb).to(xb.device)
+        bmin, lidx = block_rmq.leftmost_min(xb[tbt])
+        bv[tbt] = bmin
+        bg[tbt] = tbt.to(torch.int32) * bs + lidx
+        _patch_block_levels(si, int(tb[0]), int(tb[-1]), lambda cur, sh_: torch.where(bv[cur] <= bv[sh_], cur, sh_))
+        planes.append((xb, bv, bg, si))
+    xb, bv, bg, si = _rejoin(planes, fields)
+    return BlockRMQ(x_blocks=xb, bmin_val=bv, bmin_gidx=bg, st=SparseTable(idx=si, x=bv))
+
+
+def _pack_updates(pos: np.ndarray, val, spec) -> np.ndarray:
+    """The update words, packed on the host with global indices: a packed32
+    spec that cannot encode a value raises ``OverflowError`` here, before
+    any device state is written."""
+    return packing.pack_np(spec, val, pos.astype(np.int32))
+
+
+def patch_sharded_st_packed(
+    t: PackedSparseTable, upd_pos, upd_val, mesh, axis_names: Sequence[str], spec
+) -> PackedSparseTable:
+    """Windowed patch of the column-sharded packed doubling table: one word
+    plane rides the halo transport, and the leftmost-tie pick is the word
+    ``minimum``. Equal to ``build_sharded_st_packed`` on the mutated array.
+    Raises ``OverflowError`` before touching device state when a packed32
+    spec cannot encode a new value."""
+    del mesh, axis_names
+    pos, val = _updates(upd_pos, upd_val)
+    words = _pack_updates(pos, val, spec)
+    pick = lambda prev, win, out: torch.minimum(prev[0], win[0], out=out[0])
+    planes = _patch_levels(_planes((t.words,)), pos, [words], pick)
+    return PackedSparseTable(words=_rejoin(planes, (t.words,))[0])
+
+
+def patch_sharded_packed(
+    s: PackedBlockRMQ, upd_pos, upd_val, mesh, axis_names: Sequence[str], spec
+) -> PackedBlockRMQ:
+    """Windowed patch of the mesh-sharded packed blocked structure: scatter
+    the owned words, re-min the touched blocks, window-repair the per-shard
+    doubling plane, all on single word planes. Equal to
+    ``build_sharded_packed`` on the mutated array; raises ``OverflowError``
+    before touching device state when the spec cannot encode a value."""
+    del mesh, axis_names
+    pos, val = _updates(upd_pos, upd_val)
+    words = _pack_updates(pos, val, spec)
+    nb, bs = s.blocks.part(0).shape
+    local_n = nb * bs
+    planes = []
+    for sh, (wb, stw) in enumerate(_planes((s.blocks, s.stw))):
+        own = _owned(pos, sh * local_n, (sh + 1) * local_n)
+        if not own.any():
+            planes.append((wb, stw))
+            continue
+        lp = pos[own] - sh * local_n
+        wb, stw = wb.clone(), stw.clone()
+        _scatter(wb.view(-1), lp, words[own])
+        tb = np.unique(lp // bs)
+        tbt = torch.from_numpy(tb).to(wb.device)
+        stw[0, tbt] = wb[tbt].min(dim=1).values
+        _patch_block_levels(stw, int(tb[0]), int(tb[-1]), torch.minimum)
+        planes.append((wb, stw))
+    wb, stw = _rejoin(planes, (s.blocks, s.stw))
+    return PackedBlockRMQ(blocks=wb, stw=stw)

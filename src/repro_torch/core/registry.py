@@ -174,11 +174,9 @@ def _distributed_query(state, l, r):
 
 def _mesh_engine(planner: str, query, serve_kw: dict, build_kwargs, doc: str, **build_fixed) -> EngineSpec:
     """A mesh engine: ``build(x, device=None, mesh=None, axis_names=None)``
-    over ``default_mesh(device)`` unless a mesh is given.
-
-    ``updatable`` stays False until the mesh engines' online patches are
-    ported (queue 1 step 11b): ``update.make_online`` refuses them, naming
-    that step.
+    over ``default_mesh(device)`` unless a mesh is given. Updatable, as in
+    the reference: ``update.make_online(name, x, mesh=...)`` patches its
+    shards copy-on-write (``core.distributed.patch_sharded*``).
     """
 
     def build(x, device=None, mesh=None, axis_names=None):
@@ -191,6 +189,7 @@ def _mesh_engine(planner: str, query, serve_kw: dict, build_kwargs, doc: str, **
         serve_plan=_simple_serve_plan(planner, **serve_kw),
         doc=doc,
         needs_mesh=True,
+        updatable=True,
         modes=sharded_hybrid.MODES if planner == "sharded_hybrid" else (),
     )
 

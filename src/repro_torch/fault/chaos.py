@@ -27,9 +27,10 @@ Run it standalone, on the card or (``--device cpu``) on the host::
     PYTHONPATH=src python -m repro_torch.fault.chaos --engine hybrid --seed 7
 
 Not imported from ``repro_torch.fault`` — this module pulls in
-``repro_torch.serve``. Port of ``repro/fault/chaos.py`` for the five
-single-device updatable engines: the same plan, mutator and report; the
-engines run on ``device``.
+``repro_torch.serve``. Port of ``repro/fault/chaos.py`` for the eight
+updatable engines: the same plan, mutator and report; the engines run on
+``device``, the mesh engines on ``mesh`` (the CLI: ``device``'s default
+mesh).
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ import torch
 
 from repro_torch._device import to_numpy
 from repro_torch.checkpoint.store import _flatten
+from repro_torch.core import registry
+from repro_torch.core.distributed import ShardedLeaf
 from repro_torch.fault.durable import DurableEngine
 from repro_torch.fault.inject import FaultPlan, FaultSpec
 from repro_torch.serve import RMQServer, ServeConfig
@@ -63,7 +66,7 @@ def _struct_leaves(online) -> list:
     return [
         to_numpy(leaf)
         for _, leaf in _flatten(online.store.current.state)
-        if isinstance(leaf, torch.Tensor)
+        if isinstance(leaf, (torch.Tensor, ShardedLeaf))
     ]
 
 
@@ -175,6 +178,8 @@ def run_soak(
     root: Optional[str] = None,
     workers: int = 2,
     device=None,
+    mesh=None,
+    axis_names=None,
     plan: Optional[FaultPlan] = None,
     log=None,
 ) -> SoakReport:
@@ -184,7 +189,8 @@ def run_soak(
     same faults fire at the same invocations and the same mutations hit the
     same indices. Only thread interleaving varies — which is the point: the
     correctness conditions must hold under every interleaving. The engines
-    run on ``device`` (``None``: CUDA).
+    run on ``device`` (``None``: CUDA), a mesh engine on ``mesh`` when one
+    is given.
     """
     say = log if log is not None else (lambda *_: None)
     t0 = time.perf_counter()
@@ -194,7 +200,8 @@ def run_soak(
 
     owned_root = root is None
     root = root if root is not None else tempfile.mkdtemp(prefix="rmq-chaos-")
-    durable = DurableEngine.create(engine, x, root, device=device, fault=plan)
+    where = dict(device=device, mesh=mesh, axis_names=axis_names)
+    durable = DurableEngine.create(engine, x, root, fault=plan, **where)
     cfg = ServeConfig(
         workers=workers,
         deadline_s=5e-4,
@@ -253,7 +260,7 @@ def run_soak(
                     # (checkpoint + journal-suffix replay) and resubmit.
                     update_failures += 1
                     say(f"update failed ({e!r}); recovering")
-                    durable.recover(device=device)
+                    durable.recover(**where)
                     recoveries += 1
             else:
                 raise RuntimeError("update failed twice; recovery did not clear it")
@@ -283,11 +290,11 @@ def run_soak(
     # (checkpoints + journal) survives into the restore.
     durable.close()
 
-    restored = DurableEngine.restore(root, device=device)
+    restored = DurableEngine.restore(root, **where)
     restore_vid_ok = restored.current_vid == pre_vid
     post_leaves = _struct_leaves(restored.online)
     restore_identical = _leaves_equal(pre_leaves, post_leaves)
-    rebuilt = OnlineEngine(engine, expected[pre_vid], device=device)
+    rebuilt = OnlineEngine(engine, expected[pre_vid], **where)
     restore_equals_rebuild = _leaves_equal(post_leaves, _struct_leaves(rebuilt))
 
     # The restored engine must serve, not just compare equal.
@@ -348,6 +355,13 @@ def main(argv=None) -> int:
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
+    where = {"device": args.device}
+    if registry.get(args.engine).needs_mesh:
+        mesh, axis_names = registry.default_mesh(args.device)
+        where = {"mesh": mesh, "axis_names": axis_names}
+        if not args.quiet:
+            print(f"mesh {mesh!r}")
+
     report = run_soak(
         engine=args.engine,
         n=args.n,
@@ -357,8 +371,8 @@ def main(argv=None) -> int:
         seed=args.seed,
         workers=args.workers,
         root=args.root,
-        device=args.device,
         log=None if args.quiet else print,
+        **where,
     )
     print(report.summary())
     if args.json:

@@ -28,11 +28,14 @@ The crash-safety contract, end to end:
 (``pin``/``release``/``query``/``apply``/``n``/``current_vid``/``device``),
 so ``serve.RMQServer(online=...)`` takes either interchangeably.
 
-Port of ``repro/fault/durable.py`` for the single-device engines: the
-on-disk root (journal and checkpoints) is the reference's, byte for byte,
-so either package restores the other's. ``mesh``/``axis_names`` (the
-sharded engines) come with their online patches (ROADMAP.md queue 1,
-step 11b) and raise here.
+A mesh engine (``distributed``, ``sharded_hybrid``,
+``packed_sharded_hybrid``) takes ``mesh``/``axis_names`` in place of
+``device`` in ``create``, ``restore`` and ``recover``; its checkpoint is the
+logical array only, and a restore re-runs the BuildPlan over it.
+
+Port of ``repro/fault/durable.py``: the on-disk root (journal and
+checkpoints) is the reference's, byte for byte, so either package restores
+the other's.
 """
 
 from __future__ import annotations
@@ -60,14 +63,6 @@ def _fault_fn(fault) -> Optional[Callable[[str], None]]:
     if fault is None:
         return None
     return fault.check if hasattr(fault, "check") else fault
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a durable engine on a mesh needs the mesh engines' online patches "
-            "(ROADMAP.md queue 1, step 11b); pass device= instead"
-        )
 
 
 class DurableEngine:
@@ -103,20 +98,20 @@ class DurableEngine:
         *,
         device=None,
         mesh=None,
+        axis_names=None,
         fault=None,
         **build_kw,
     ) -> "DurableEngine":
-        """Build engine ``name`` over ``x`` on ``device`` with durability
-        rooted at ``root``."""
-        _no_mesh(mesh)
-        online = OnlineEngine(name, x, device=device, **build_kw)
+        """Build engine ``name`` over ``x`` on ``device`` (a mesh engine: on
+        ``mesh``) with durability rooted at ``root``."""
+        online = OnlineEngine(name, x, device=device, mesh=mesh, axis_names=axis_names, **build_kw)
         d = cls(online, root, fault=fault)
         if checkpoint_mod.latest_step(d.ckpt_dir) is None:
             d.checkpoint()  # durable base: restore always has a floor
         return d
 
     @classmethod
-    def restore(cls, root: str, *, device=None, mesh=None, fault=None) -> "DurableEngine":
+    def restore(cls, root: str, *, device=None, mesh=None, axis_names=None, fault=None) -> "DurableEngine":
         """Latest checkpoint + journal-suffix replay -> a consistent engine.
 
         Bit-identical to the never-crashed state: the checkpoint was taken
@@ -126,10 +121,9 @@ class DurableEngine:
         restoring twice (or restoring a restored root) converges on the same
         state and seq.
         """
-        _no_mesh(mesh)
         ckpt = os.path.join(root, _CKPT_SUBDIR)
         arrays, meta, _ = checkpoint_mod.load_snapshot(ckpt)
-        online = OnlineEngine.from_snapshot(arrays, meta, device=device)
+        online = OnlineEngine.from_snapshot(arrays, meta, device=device, mesh=mesh, axis_names=axis_names)
         d = cls(online, root, fault=fault, _seq=int(meta["seq"]))
         tr = obs_trace.get_tracer()
         with tr.span("restore", attrs={"root": root} if tr.enabled else None):
@@ -141,18 +135,23 @@ class DurableEngine:
         reg.counter("restore_replays_total").inc(d.replayed)
         return d
 
-    def recover(self, *, device=None, mesh=None) -> int:
+    def recover(self, *, device=None, mesh=None, axis_names=None) -> int:
         """In-place crash recovery; returns the number of replayed records.
 
         Replaces the inner engine with a restore of this root — the
         supported way to clear a poisoned (fail-stopped) applier: the failed
         update was abort-marked, so the replayed engine lands on the last
-        published version and accepts new updates again. ``device=None``
-        restores onto the inner engine's device.
+        published version and accepts new updates again. With neither
+        ``device`` nor ``mesh`` it restores where the inner engine lives
+        (its mesh, or its device).
         """
         with self._lock:
-            dev = self.online.device if device is None else device
-            fresh = DurableEngine.restore(self.root, device=dev, mesh=mesh)
+            if device is None and mesh is None:
+                if self.online.mesh is not None:
+                    mesh, axis_names = self.online.mesh, self.online.axis_names
+                else:
+                    device = self.online.device
+            fresh = DurableEngine.restore(self.root, device=device, mesh=mesh, axis_names=axis_names)
             fresh.journal.close()
             self.online = fresh.online
             self._seq = max(self._seq, fresh._seq)
@@ -276,6 +275,14 @@ class DurableEngine:
     @property
     def device(self):
         return self.online.device
+
+    @property
+    def mesh(self):
+        return self.online.mesh
+
+    @property
+    def axis_names(self):
+        return self.online.axis_names
 
     @property
     def n(self) -> int:

@@ -25,7 +25,15 @@ Two modes:
 ``--chaos SEED`` runs the seeded chaos soak (``repro_torch.fault.chaos``)
 instead of serving: worker crashes, a failed patch and a failed checkpoint
 mid-stream, then a crash-restore that must be bit-identical; it exits 1
-unless the report is ``[OK]``.
+unless the report is ``[OK]``. ``--mutate``, ``--restore`` and ``--chaos``
+take the mesh engines too, on the CLI's mesh.
+
+``--replicas N`` (async, updatable engines) serves through a replica fleet
+(``repro_torch.serve.fleet``): N serving stacks behind one regime-routing,
+read-your-writes front door, each ``--mutate`` batch rolled out to every
+replica within ``--max-lag`` versions, every request verified against the
+oracle of the version it was answered at. A mesh engine's replicas carve
+the visible cards (``--device cpu``: one CPU position each).
 
 The engine runs on ``--device`` (default ``cuda``; it fails when CUDA is
 absent, it does not fall back). Engine choices and flag validation derive
@@ -45,8 +53,7 @@ The mesh engines (``distributed``, ``sharded_hybrid``,
 for ``cpu``); ``--qshard`` shards the query batch (``shard_batch``) and
 ``--qshard 2d`` factors the cards into a (structure, batch) grid
 (``shard_2d``, which a one-card mesh degrades to ``shard_structure``).
-Port of ``repro/launch/serve.py``; the fleet's flags (--replicas,
---max-lag) are not ported yet.
+Port of ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n 67108864 \
       --batch 4096 --batches 8 --dist small --engine hybrid
@@ -64,6 +71,8 @@ Port of ``repro/launch/serve.py``; the fleet's flags (--replicas,
       --engine hybrid --n 1048576
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --engine sharded_hybrid --qshard 2d --n 67108864
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --engine hybrid --replicas 3 --max-lag 2 --mutate 4 --n 16777216
 """
 
 from __future__ import annotations
@@ -165,6 +174,20 @@ def _parser() -> argparse.ArgumentParser:
     asy.add_argument("--workers", type=int, default=1, help="engine-pool threads")
     asy.add_argument("--max-pending", type=int, default=4096, help="admission-control bound")
     asy.add_argument(
+        "--replicas",
+        type=int,
+        default=1,
+        help="replica fleet size: >1 serves through serve.fleet's regime-"
+        "routing front door (updatable engines; mesh engines carve one "
+        "device group per replica)",
+    )
+    asy.add_argument(
+        "--max-lag",
+        type=int,
+        default=1,
+        help="fleet rollout barrier: max version spread between replicas",
+    )
+    asy.add_argument(
         "--mutate",
         type=int,
         default=0,
@@ -254,6 +277,16 @@ def _build_kwargs(ap, args, spec: registry.EngineSpec) -> dict:
                 f"--mutate requires an updatable engine; "
                 f"{args.engine} is not (have {registry.updatable_names()})"
             )
+    if args.replicas > 1:
+        if args.mode != "async":
+            ap.error("--replicas > 1 requires --mode async")
+        if not spec.updatable:
+            ap.error(
+                f"--replicas > 1 requires an updatable engine; "
+                f"{args.engine} is not (have {registry.updatable_names()})"
+            )
+        if args.chaos is not None:
+            ap.error("--chaos runs a single-engine soak; drop --replicas")
     if args.chaos is not None and not spec.updatable:
         ap.error(
             f"--chaos requires an updatable engine; "
@@ -455,6 +488,142 @@ def _run_async(args, spec, state, x, plan, where: str, online=None) -> bool:
     return ok
 
 
+def _run_fleet(args, spec, x, kw, device) -> bool:
+    """Serve through a replica fleet (``serve.fleet``): regime-routed front
+    door, bounded-lag rollouts, per-version oracle verification — the
+    multi-replica twin of ``_run_async``."""
+    from repro_torch.serve.fleet import FleetConfig, RMQFleet, cli_placement
+
+    scfg = ServeConfig(
+        deadline_s=args.deadline_ms * 1e-3,
+        max_batch=args.max_batch,
+        max_pending=args.max_pending,
+        workers=args.workers,
+        adaptive_deadline=args.adaptive_deadline,
+        max_retries=4,
+    )
+    fcfg = FleetConfig(replicas=args.replicas, max_version_lag=args.max_lag, server=scfg)
+    t0 = time.perf_counter()
+    fleet = RMQFleet.build(
+        args.engine,
+        x,
+        config=fcfg,
+        durable_root=args.restore,
+        **cli_placement(args.engine, device, None, args.replicas),
+        **kw,
+    )
+    base_vid = fleet.head_vid
+    fleet.warmup()
+    where = sorted({str(d) for rep in fleet.replicas for d in (rep.mesh.physical_devices if rep.mesh else (rep.device,))})
+    print(
+        f"[{args.engine} x{args.replicas}] fleet build+warmup "
+        f"{(time.perf_counter() - t0)*1e3:.1f} ms (threshold {fleet.threshold}, "
+        f"lag bound {fcfg.max_version_lag}, "
+        f"affinities {list(fcfg.resolved_affinities())})"
+    )
+
+    upd_futs = []
+    sess = fleet.session()
+
+    def mutator():
+        # Same open-loop Poisson mutator as the single-server path, but each
+        # batch rolls out fleet-wide through the session (read-your-writes).
+        mrng = np.random.default_rng(77)
+        for i in range(args.mutate):
+            if args.mutate_rate > 0:
+                time.sleep(mrng.exponential(1.0 / args.mutate_rate))
+            cur_n = fleet.head_n
+            log = update_mod.DeltaLog()
+            for _ in range(3):
+                log.point(int(mrng.integers(0, cur_n)), float(mrng.random()))
+            if i % 3 == 1 and cur_n > 2:
+                a = int(mrng.integers(0, cur_n - 1))
+                log.fill(a, min(a + 63, cur_n - 1), float(mrng.random()))
+            if i % 4 == 3:
+                log.append(mrng.random(32, dtype=np.float32))
+            try:
+                upd_futs.append((log, fleet.submit_update(log, session=sess)))
+            except ServerOverloaded:
+                pass
+
+    with _metrics_dump(args.metrics_interval, fleet.metrics), fleet:
+        t0 = time.perf_counter()
+        mut = None
+        if args.mutate:
+            mut = threading.Thread(target=mutator, name="mutator")
+            mut.start()
+        per_client = run_poisson_clients(
+            args.clients,
+            args.requests,
+            args.rate,
+            lambda rng, c: make_queries(rng, args.n, args.req_batch, args.dist),
+            fleet.submit,
+            seed=10_000,
+        )
+        if mut is not None:
+            mut.join()
+        done = []
+        dropped = 0
+        for out in per_client:
+            for (l, r), fut in out:
+                if fut is None:
+                    dropped += 1
+                else:
+                    done.append((l, r, fut.result(timeout=300)))
+        settled = fleet.wait_settled(timeout=300)
+        wall = time.perf_counter() - t0
+        st = fleet.stats()
+
+    # Per-version host oracles, as in _run_async: the fleet assigns vids in
+    # submission order, so the replay below matches every replica.
+    oracles = {base_vid: x}
+    patched = rebuilt = 0
+    if upd_futs:
+        xm = x.copy()
+        for log, fut in upd_futs:
+            res = fut.result(timeout=300)
+            xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+            oracles[res.version] = xm.copy()
+            patched += res.patched
+            rebuilt += not res.patched
+
+    served = len(done)
+    mismatches = 0
+    for l, r, res in done:
+        ox = oracles[res.version if res.version is not None else base_vid]
+        gold = ref.rmq_ref(ox, l, r)
+        if not (np.array_equal(res.idx, gold) and np.array_equal(res.val, ox[gold])):
+            mismatches += 1
+
+    print(
+        f"[fleet {args.engine} x{args.replicas}] {args.clients} clients x "
+        f"{args.requests} reqs x {args.req_batch} RMQs ({args.dist} ranges, "
+        f"{args.rate:g} req/s/client) on {len(where)} device(s) {where}, "
+        f"{wall*1e3:.0f} ms wall"
+    )
+    print(f"  {st.summary()}")
+    if done:
+        total = np.array([res.timing.total_s for _, _, res in done])
+        print(
+            f"  latency: p50 {np.percentile(total, 50)*1e3:.2f} ms p99 "
+            f"{np.percentile(total, 99)*1e3:.2f} ms over {total.size} requests (replica submit -> answer)"
+        )
+    if upd_futs:
+        print(
+            f"  mutate: {len(upd_futs)} rollouts ({patched} patched, {rebuilt} "
+            f"rebuilt), n {args.n} -> {fleet.head_n}, settled={settled}, "
+            f"session floor v{sess.last_vid}"
+        )
+    print(
+        f"  verify: {served - mismatches}/{served} requests bit-identical to the "
+        f"oracle of their pinned version; dropped {dropped}"
+    )
+    ok = mismatches == 0 and served > 0 and settled
+    if args.mutate:
+        ok = ok and len(upd_futs) > 0
+    return ok
+
+
 def _span_attrs(engine: str, plan) -> dict:
     """Static launch-span attrs derived from the resolved BuildPlan: the
     engine, routing threshold, and kernel config every exported launch span
@@ -547,6 +716,9 @@ def main(argv=None) -> None:
 def _run_modes(args, spec, kw, device) -> bool:
     rng = np.random.default_rng(0)
     x = rng.random(args.n, dtype=np.float32)
+    # A mesh engine's placement (its mesh) takes the place of the device.
+    mesh_kw = _serve_mesh(args, spec, device)
+    where = mesh_kw or {"device": device}
 
     if args.chaos is not None:
         from repro_torch.fault import chaos as chaos_mod
@@ -557,11 +729,14 @@ def _run_modes(args, spec, kw, device) -> bool:
             seed=args.chaos,
             root=args.restore,
             workers=args.workers,
-            device=device,
             log=print,
+            **where,
         )
         print(report.summary())
         return bool(report.ok)
+    if args.replicas > 1:
+        # The fleet carves its own per-replica devices (RMQFleet.build).
+        return _run_fleet(args, spec, x, kw, device)
     if args.mutate:
         # Online build: the OnlineEngine plans + builds version 0 and owns
         # the MVCC store; the server pins versions per launch. With
@@ -573,7 +748,7 @@ def _run_modes(args, spec, kw, device) -> bool:
             from repro_torch.fault import DurableEngine
 
             if ckpt_mod.latest_step(os.path.join(args.restore, "ckpt")) is not None:
-                online = DurableEngine.restore(args.restore, device=device)
+                online = DurableEngine.restore(args.restore, **where)
                 x = np.asarray(online.store.current.x_host)
                 args.n = online.n
                 print(
@@ -582,10 +757,11 @@ def _run_modes(args, spec, kw, device) -> bool:
                     f"n={online.n} ({online.replayed} journal records replayed)"
                 )
             else:
-                online = DurableEngine.create(args.engine, x, args.restore, device=device, **kw)
+                online = DurableEngine.create(args.engine, x, args.restore, **where, **kw)
         else:
-            online = update_mod.make_online(args.engine, x, device=device, **kw)
-        _sync(device)
+            online = update_mod.make_online(args.engine, x, **where, **kw)
+        for d in mesh_kw["mesh"].physical_devices if mesh_kw else (device,):
+            _sync(d)
         plan = online.plan
         print(
             f"[{args.engine}] online build {((time.perf_counter() - t0))*1e3:.1f} ms "
@@ -593,13 +769,12 @@ def _run_modes(args, spec, kw, device) -> bool:
             f"{plan.layout.shard_len} cols, threshold {plan.meta.get('threshold')}, "
             f"version {online.current_vid})"
         )
-        return _run_async(args, spec, None, x, plan, _where(device, {}), online=online)
+        return _run_async(args, spec, None, x, plan, _where(device, mesh_kw), online=online)
 
     # The staged BuildPlan resolves everything static (device, threshold,
     # kernel geometry: a cache read, or a measurement on a --calibrate or
     # --tune miss) before touching the array; async warmup reads the plan's
     # regimes instead of guessing.
-    mesh_kw = _serve_mesh(args, spec, device)
     t0 = time.perf_counter()
     plan = registry.plan_for_serving(args.engine, args.n, device, **mesh_kw, **kw)
     t_plan = time.perf_counter() - t0

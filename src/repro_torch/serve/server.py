@@ -51,9 +51,12 @@ from its root (latest checkpoint + journal-suffix replay) onto ``device``
 and serves it like ``online=``; a ``DurableEngine`` passed as ``online=``
 serves the same way.
 
-Port of ``repro/serve/server.py`` on its ``query_fn``, ``online`` and
-``restore`` paths; ``submit(min_version=)`` and the regime affinity come
-with the fleet (ROADMAP.md queue 1, step 12).
+**Fleet hooks** (``serve.fleet``): ``submit(min_version=V)`` raises
+``StaleVersion`` on a server that has not yet published V (the
+read-your-writes backstop), and ``ServeConfig.regime_affinity`` names the
+query regime a replica is hot for; its warmup runs that regime first.
+
+Port of ``repro/serve/server.py``.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ __all__ = [
     "ServeStats",
     "ServerClosed",
     "ServerOverloaded",
+    "StaleVersion",
 ]
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -121,6 +125,14 @@ class DeadlineExceeded(RuntimeError):
     answered it (in queue, or across too many retries)."""
 
 
+class StaleVersion(RuntimeError):
+    """``submit(min_version=V)`` on a server still serving a version < V.
+
+    The read-your-writes signal: a fleet front door catches this and routes
+    the request to (or waits for) a replica that has published V.
+    """
+
+
 @dataclass(frozen=True)
 class ServeConfig:
     deadline_s: float = 2e-3  # max coalescing wait for the oldest request
@@ -142,6 +154,11 @@ class ServeConfig:
     breaker_cooldown_s: float = 0.05  # open time before a half-open health probe
     worker_backoff_s: float = 0.01  # first restart delay for a crashed worker
     worker_backoff_max_s: float = 1.0  # exponential backoff cap
+    # Fleet routing hint: which query regime this server's pool is hot for
+    # ("short" = blocked path, "long" = sparse-table path, None = no
+    # affinity). Warmup runs the hot regime first, and the fleet front door
+    # routes matching batches here.
+    regime_affinity: Optional[str] = None
 
     def __post_init__(self):
         if self.deadline_s < 0 or self.max_batch < 1 or self.max_pending < 1 or self.workers < 1:
@@ -163,6 +180,10 @@ class ServeConfig:
             raise ValueError(f"invalid ServeConfig: {self}")
         if self.request_timeout_s is not None and self.request_timeout_s <= 0:
             raise ValueError(f"request_timeout_s must be > 0 or None: {self}")
+        if self.regime_affinity not in (None, "short", "long"):
+            raise ValueError(
+                f"regime_affinity must be None, 'short', or 'long': {self.regime_affinity!r}"
+            )
 
     def deadline_bounds(self) -> Tuple[float, float]:
         """(min, max) the adaptive deadline moves within."""
@@ -436,8 +457,14 @@ class RMQServer:
 
     @property
     def online(self):
-        """The OnlineEngine this server serves (None for bare query_fn servers)."""
+        """The OnlineEngine/DurableEngine this server serves (None for bare
+        query_fn servers). Fleet routing reads ``online.current_vid`` here."""
         return self._online
+
+    @property
+    def affinity(self) -> Optional[str]:
+        """The regime this server's pool is hot for (``ServeConfig``)."""
+        return self._cfg.regime_affinity
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -506,7 +533,9 @@ class RMQServer:
         BuildPlan (``core.build.warmup_bounds``): one batch per query regime
         the plan's threshold can dispatch to. Without a plan, when
         ``config.n`` is known each shape runs on all-(0, 0) and all-(0, n-1)
-        batches, so a range-adaptive engine warms both regimes.
+        batches, so a range-adaptive engine warms both regimes. A server
+        whose ``regime_affinity`` is ``"long"`` runs the long regime's probe
+        of each size first.
         """
         if sizes is None:
             top = bucket(self._cfg.max_batch)
@@ -517,7 +546,13 @@ class RMQServer:
         n = self._cfg.n
         for s in sizes:
             if self._warmup_bounds is not None:
-                for l, r in self._warmup_bounds(s):
+                probes = list(self._warmup_bounds(s))
+                if self._cfg.regime_affinity == "long":
+                    # Hot-pool affinity: the affinity regime first (probes
+                    # come short-regime first), so a replica's first real
+                    # batch finds it warm even if warmup is cut short.
+                    probes.reverse()
+                for l, r in probes:
                     self._query_fn(l, r)
                 continue
             zeros = np.zeros(s, np.int32)
@@ -527,7 +562,7 @@ class RMQServer:
 
     # -- client API ---------------------------------------------------------
 
-    def submit(self, l, r) -> Future:
+    def submit(self, l, r, *, min_version: Optional[int] = None) -> Future:
         """Enqueue one client request of (l, r) query bounds -> Future.
 
         The future resolves to a ``RequestResult`` whose idx/val (numpy, on
@@ -535,11 +570,24 @@ class RMQServer:
         ``ServerOverloaded`` when admission control rejects (backpressure),
         ``ServerClosed`` after ``close()``, and ``ValueError``/``TypeError``
         on malformed bounds.
+
+        ``min_version`` (online servers) is a session's floor: if this
+        server's engine has not yet published version ``min_version``, raise
+        ``StaleVersion`` instead of enqueueing. Version ids are monotone and
+        batches pin the version current at flush time, so passing the check
+        here guarantees an answer at a version >= ``min_version``, across
+        automatic retries too.
         """
         if self._closed:
             raise ServerClosed("submit() on a closed server")
         if not self._started:
             raise ServerClosed("submit() before start()")
+        if min_version is not None:
+            if self._online is None:
+                raise ValueError("min_version needs a server with an OnlineEngine")
+            cur = self._online.current_vid
+            if cur < min_version:
+                raise StaleVersion(f"server at version {cur}, request requires >= {min_version}")
         l = np.asarray(l)
         r = np.asarray(r)
         if l.shape != r.shape or l.ndim != 1:

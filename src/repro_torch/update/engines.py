@@ -8,21 +8,24 @@ of a rebuild. Queries pin a version from the MVCC store and never block on
 mutation; ``apply`` is serialized (one updater at a time), so version ids
 are the consistency order.
 
-Per-engine patch strategy (``sparse_table``, ``block128``, ``block256``,
-``hybrid``, ``packed_hybrid``): host numpy mirrors (``update.patch``) take
-the windowed per-level doubling repair and the O(bs) block-min repair, then
-the patched leaves are published as fresh device tensors, copy-on-write at
-the leaf level: a publish clones the previous leaf on its device and writes
-only the uploaded windows into the clone. The hybrids pin the plain short
-path (``use_kernels=False``), as the reference does: the fused kernels'
-structures are not patched in place, so an online hybrid launches no CUDA
-kernel.
+Per-engine patch strategy. Single-device engines (``sparse_table``,
+``block128``, ``block256``, ``hybrid``, ``packed_hybrid``): host numpy
+mirrors (``update.patch``) take the windowed per-level doubling repair and
+the O(bs) block-min repair, then the patched leaves are published as fresh
+device tensors, copy-on-write at the leaf level: a publish clones the
+previous leaf on its device and writes only the uploaded windows into the
+clone. The hybrids pin the plain short path (``use_kernels=False``), as the
+reference does: the fused kernels' structures are not patched in place, so
+an online hybrid launches no CUDA kernel. Mesh engines (``distributed``,
+``sharded_hybrid``, ``packed_sharded_hybrid``): the structure-sharded modes
+patch on the devices through ``core.distributed``'s copy-on-write shard
+patches; ``shard_batch`` patches host mirrors and re-uploads one copy per
+device; a batch past the padded capacity (or one a packed32 spec cannot
+encode) rebuilds. A mesh engine's snapshot is the logical array, and a
+restore re-runs the BuildPlan with the resolved knobs pinned.
 
 Every patched state is bit-identical to a from-scratch rebuild of the
-mutated array, leaf for leaf. Port of the single-host half of
-``repro/update/engines.py``; the online patches of the mesh engines
-(``distributed``, ``sharded_hybrid``, ``packed_sharded_hybrid``) come with
-ROADMAP.md queue 1, step 11b.
+mutated array, leaf for leaf. Port of ``repro/update/engines.py``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve, to_numpy
-from repro_torch.core import block_rmq, hybrid, packing, registry, sparse_table
+from repro_torch.core import block_rmq, distributed, hybrid, packing, registry, sparse_table
 from repro_torch.core import build as build_mod
 from repro_torch.core.block_rmq import BlockRMQ
 from repro_torch.core.sparse_table import SparseTable
@@ -54,11 +57,6 @@ __all__ = [
     "make_online",
     "online_names",
 ]
-
-# The mesh engines: their online patches (``patch_sharded``, the masked
-# halo repair) come with queue 1 step 11b.
-_MESH_ENGINES = ("distributed", "sharded_hybrid", "packed_sharded_hybrid")
-
 
 class EnginePoisoned(RuntimeError):
     """The engine fail-stopped after a mid-patch apply failure.
@@ -537,12 +535,221 @@ def _packed_hybrid_impl(x, device, kw, snap=None) -> _Impl:
     )
 
 
+# --- mesh implementations ----------------------------------------------------
+#
+# Mesh-resident structures: the snapshot is the logical array only, and a
+# restore re-runs the BuildPlan over it (the restore kwargs pin the
+# threshold, mode and layout), equal to the live patched state by the
+# patched == rebuilt invariant. ``where`` holds the plan's placement:
+# ``mesh``/``axis_names`` (or ``device`` for the default mesh).
+
+
+def _mesh_vals(batch: DeltaBatch) -> np.ndarray:
+    """The values at ``batch.touched()``: the writes, then the tail."""
+    return np.concatenate([batch.val, batch.tail.astype(batch.val.dtype)])
+
+
+def _replicated(tree, mesh):
+    """Host leaves of a mirror-built structure, one fresh copy per device of
+    ``mesh`` (never sharing memory with the mirrors, which are patched in
+    place after a publish: an upload to a card copies, and on the CPU
+    ``copy=True`` does)."""
+    (devs,) = distributed.shard_devices(mesh, ())
+    return distributed._map(
+        lambda a: distributed.ShardedLeaf([{d: torch.from_numpy(a).to(d, copy=True) for d in devs}]), tree
+    )
+
+
+def _distributed_impl(x, where, kw, snap=None) -> _Impl:
+    plan = build_mod.plan_for("distributed", x.shape[0], **where, block_size=kw.get("block_size", 128))
+    state0 = build_mod.execute(plan, x)
+    mesh, axes = plan.meta["mesh"], plan.meta["axis_names"]
+    bs = plan.meta["block_size"]
+    x_host = to_numpy(x)  # full-array mirror: the rebuild source
+
+    def patch(batch: DeltaBatch, prev):
+        nonlocal x_host
+        x_host = batch.apply_numpy(x_host)
+        s, qfn = prev
+        nb, bsz = s.x_blocks.shape
+        if batch.n_new > nb * bsz:  # grew past the padded shard capacity
+            p2 = build_mod.plan_for("distributed", batch.n_new, mesh=mesh, axis_names=axes, block_size=bs)
+            return build_mod.execute(p2, torch.from_numpy(x_host)), False
+        return (distributed.patch_sharded(s, batch.touched(), _mesh_vals(batch), mesh, axes), qfn), True
+
+    return _Impl(plan, state0, patch, snapshot=lambda: {"x": x_host.copy()}, array=lambda: x_host.copy())
+
+
+def _sharded_hybrid_impl(x, where, kw, snap=None) -> _Impl:
+    if build_mod._norm_packed(kw.get("packed")) is not None:
+        return _packed_sharded_hybrid_impl(x, where, kw, snap=snap)
+    plan = build_mod.plan_for(
+        "sharded_hybrid",
+        x.shape[0],
+        **where,
+        block_size=kw.get("block_size", 128),
+        threshold=kw.get("threshold"),
+        mode=kw.get("mode", "shard_structure"),
+    )
+    state0 = build_mod.execute(plan, x)
+    mesh, struct_axes = plan.meta["mesh"], plan.meta["struct_axes"]
+    mode, bs = plan.meta["mode"], plan.meta["block_size"]
+    x_host = to_numpy(x)
+    snapshot = lambda: {"x": x_host.copy()}
+    array = lambda: x_host.copy()
+
+    if not struct_axes:  # shard_batch: replicated structures, host mirrors
+        blocked_m = BlockMirror.from_state(state0.blocked, x.shape[0])
+        st_m = STMirror.from_state(state0.st)
+
+        def patch(batch: DeltaBatch, prev):
+            nonlocal x_host
+            x_host = batch.apply_numpy(x_host)
+            blocked_m.patch(batch)
+            st_m.patch(batch)
+            blocked = _replicated(
+                BlockRMQ(blocked_m.x_blocks, blocked_m.bmin_val, blocked_m.bmin_gidx, SparseTable(blocked_m.st_idx, None)),
+                mesh,
+            )
+            blocked = blocked._replace(st=blocked.st._replace(x=blocked.bmin_val))
+            table = _replicated(SparseTable(st_m.idx, st_m.x), mesh)
+            return prev._replace(blocked=blocked, st=table, n=batch.n_new), True
+
+        return _Impl(plan, state0, patch, snapshot=snapshot, array=array)
+
+    def patch(batch: DeltaBatch, prev):
+        nonlocal x_host
+        x_host = batch.apply_numpy(x_host)
+        nb, bsz = prev.blocked.x_blocks.shape
+        if batch.n_new > min(nb * bsz, prev.st.idx.shape[1]):
+            # Structural rebuild (capacity exceeded); the routing threshold
+            # stays pinned so the rebuild is as deterministic as the patch.
+            p2 = build_mod.plan_for(
+                "sharded_hybrid",
+                batch.n_new,
+                mesh=mesh,
+                axis_names=plan.meta["axis_names"],
+                block_size=bs,
+                threshold=int(prev.threshold),
+                mode=mode,
+            )
+            return build_mod.execute(p2, torch.from_numpy(x_host)), False
+        pos, vals = batch.touched(), _mesh_vals(batch)
+        return (
+            prev._replace(
+                blocked=distributed.patch_sharded(prev.blocked, pos, vals, mesh, struct_axes),
+                st=distributed.patch_sharded_st(prev.st, pos, vals, mesh, struct_axes),
+                n=batch.n_new,
+            ),
+            True,
+        )
+
+    return _Impl(plan, state0, patch, snapshot=snapshot, array=array)
+
+
+def _packed_sharded_hybrid_impl(x, where, kw, snap=None) -> _Impl:
+    """Online packed sharded hybrid: single-plane patches.
+
+    Structure-sharded modes patch through ``distributed.patch_sharded_packed``
+    / ``patch_sharded_st_packed`` (one word plane rides the halo transport);
+    ``shard_batch`` patches host packed mirrors and re-replicates. A batch
+    the spec cannot encode (packed32 key range, appends past the index
+    field) raises ``OverflowError`` on the host before any device write and
+    rebuilds under a fresh spec.
+    """
+    layout_req = build_mod._norm_packed(kw.get("packed", "auto")) or "auto"
+    plan = build_mod.plan_for(
+        "sharded_hybrid",
+        x.shape[0],
+        **where,
+        block_size=kw.get("block_size", 128),
+        threshold=kw.get("threshold"),
+        mode=kw.get("mode", "shard_structure"),
+        packed=layout_req,
+    )
+    state0 = build_mod.execute(plan, x)
+    mesh, struct_axes = plan.meta["mesh"], plan.meta["struct_axes"]
+    mode, bs = plan.meta["mode"], plan.meta["block_size"]
+    x_host = to_numpy(x)
+    spec = state0.spec
+    snapshot = lambda: {"x": x_host.copy()}
+    array = lambda: x_host.copy()
+
+    def _rebuild(n_new, threshold):
+        nonlocal spec
+        p2 = build_mod.plan_for(
+            "sharded_hybrid",
+            n_new,
+            mesh=mesh,
+            axis_names=plan.meta["axis_names"],
+            block_size=bs,
+            threshold=threshold,
+            mode=mode,
+            packed=layout_req,
+        )
+        state = build_mod.execute(p2, torch.from_numpy(x_host))
+        spec = state.spec
+        return state
+
+    if not struct_axes:  # shard_batch: replicated structures, packed mirrors
+        blocked_m = PackedBlockMirror.from_state(state0.blocked, spec, x.shape[0])
+        st_m = PackedSTMirror.from_state(state0.st, x_host, spec)
+
+        def patch(batch: DeltaBatch, prev):
+            nonlocal x_host, blocked_m, st_m
+            try:
+                packed_fit_check(spec, _mesh_vals(batch), batch.n_new)
+            except OverflowError:
+                x_host = batch.apply_numpy(x_host)
+                state = _rebuild(batch.n_new, int(prev.threshold))
+                blocked_m = PackedBlockMirror.from_state(state.blocked, spec, batch.n_new)
+                st_m = PackedSTMirror.from_state(state.st, x_host, spec)
+                return state, False
+            x_host = batch.apply_numpy(x_host)
+            blocked_m.patch(batch)
+            st_m.patch(batch)
+            # Mesh packing is never quantized, so both word planes exist.
+            blocked = _replicated(block_rmq.PackedBlockRMQ(blocked_m.block_words, blocked_m.stw_words), mesh)
+            table = _replicated(sparse_table.PackedSparseTable(words=st_m.words), mesh)
+            return prev._replace(blocked=blocked, st=table, n=batch.n_new), True
+
+        return _Impl(plan, state0, patch, snapshot=snapshot, array=array)
+
+    def patch(batch: DeltaBatch, prev):
+        nonlocal x_host
+        vals = _mesh_vals(batch)
+        x_host = batch.apply_numpy(x_host)
+        nb, bsz = prev.blocked.blocks.shape
+        if batch.n_new > min(nb * bsz, prev.st.words.shape[1]):
+            return _rebuild(batch.n_new, int(prev.threshold)), False
+        try:
+            # Appends inside the padded capacity can still outgrow the
+            # spec's index field: checked on the host before any scatter.
+            packed_fit_check(spec, vals, batch.n_new)
+        except OverflowError:
+            return _rebuild(batch.n_new, int(prev.threshold)), False
+        pos = batch.touched()
+        return (
+            prev._replace(
+                blocked=distributed.patch_sharded_packed(prev.blocked, pos, vals, mesh, struct_axes, spec),
+                st=distributed.patch_sharded_st_packed(prev.st, pos, vals, mesh, struct_axes, spec),
+                n=batch.n_new,
+            ),
+            True,
+        )
+
+    return _Impl(plan, state0, patch, snapshot=snapshot, array=array)
+
+
 _FACTORIES: Dict[str, Callable] = {
     "sparse_table": _sparse_table_impl,
     "block128": _block_impl(128),
     "block256": _block_impl(256),
     "hybrid": _hybrid_impl,
+    "distributed": _distributed_impl,
+    "sharded_hybrid": _sharded_hybrid_impl,
     "packed_hybrid": _packed_hybrid_impl,
+    "packed_sharded_hybrid": _packed_sharded_hybrid_impl,
 }
 
 
@@ -558,7 +765,9 @@ class OnlineEngine:
     ``core.build.update_plan`` (observable like any BuildPlan); queries go
     through ``pin()``/``release()`` so in-flight work keeps its snapshot
     while updates publish. Thread-safe: ``apply`` is serialized, pins are
-    refcounted. The structures live on ``device`` (``None``: CUDA).
+    refcounted. The structures live on ``device`` (``None``: CUDA); a mesh
+    engine's live on ``mesh`` (over ``axis_names``; without a mesh, the
+    default mesh of ``device``), and a mesh takes the place of ``device``.
     """
 
     def __init__(
@@ -567,29 +776,45 @@ class OnlineEngine:
         x,
         *,
         device=None,
+        mesh=None,
+        axis_names=None,
         _snapshot=None,  # snapshot leaves: restore path (see from_snapshot)
         _first_vid: int = 0,  # version-id continuity across a restore
         **build_kw,
     ):
-        if name in _MESH_ENGINES:
-            raise ValueError(
-                f"engine {name!r} is a mesh engine: its online updates come with the "
-                "mesh patches (ROADMAP.md queue 1, step 11b)"
-            )
         spec = registry.get(name)
         if not spec.updatable:
             raise ValueError(f"engine {name!r} is not updatable; have {registry.updatable_names()}")
-        self.device = resolve(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both: a mesh names its own devices")
+        if mesh is not None or axis_names is not None:
+            if not spec.needs_mesh:
+                raise ValueError(f"engine {name!r} builds on one device: pass device=, not a mesh")
+            if mesh is None:
+                raise ValueError("axis_names= needs a mesh")
+        if mesh is not None:
+            self.device = distributed.home_device(mesh)
+        else:
+            self.device = resolve(device)
         x = torch.as_tensor(to_numpy(x)).to(self.device)
         if x.ndim != 1:
             raise ValueError(f"need a 1-D array, got shape {tuple(x.shape)}")
         self.name = name
         self.spec = spec
-        impl = _FACTORIES[name](x, self.device, build_kw, snap=_snapshot)
+        if spec.needs_mesh:
+            where = {"mesh": mesh, "axis_names": axis_names} if mesh is not None else {"device": self.device}
+            impl = _FACTORIES[name](x, where, build_kw, snap=_snapshot)
+            # The mesh the plan resolved (the default one when none was given).
+            self.mesh, self.axis_names = impl.plan.meta["mesh"], impl.plan.meta["axis_names"]
+            self._devices = self.mesh.physical_devices
+        else:
+            impl = _FACTORIES[name](x, self.device, build_kw, snap=_snapshot)
+            self.mesh = self.axis_names = None
+            self._devices = (self.device,)
         self.plan = impl.plan
         self._dtype = np.dtype(to_numpy(x[:0]).dtype)
         # Pin the plan-resolved knobs: a snapshot restored with these kwargs
-        # re-plans to the exact same layout/threshold deterministically.
+        # re-plans to the exact same layout/threshold/mode deterministically.
         self._build_kw = dict(build_kw)
         for key in ("block_size", "threshold", "mode", "packed"):
             val = self.plan.meta.get(key)
@@ -661,8 +886,10 @@ class OnlineEngine:
             return arrays, meta
 
     @classmethod
-    def from_snapshot(cls, arrays, meta, *, device=None):
-        """Reconstruct an engine from ``snapshot()`` output on ``device``.
+    def from_snapshot(cls, arrays, meta, *, device=None, mesh=None, axis_names=None):
+        """Reconstruct an engine from ``snapshot()`` output on ``device``
+        (a mesh engine: on ``mesh``, which the caller supplies, as meshes are
+        not serialized).
 
         Version ids continue from the snapshot's vid (the restored initial
         publish IS that version).
@@ -672,6 +899,8 @@ class OnlineEngine:
             meta["engine"],
             x,
             device=device,
+            mesh=mesh,
+            axis_names=axis_names,
             _snapshot=arrays,
             _first_vid=int(meta["vid"]),
             **meta.get("build_kw", {}),
@@ -680,11 +909,13 @@ class OnlineEngine:
     # -- mutation -------------------------------------------------------------
 
     def _sync(self) -> None:
-        """Wait for this thread's device work (the clones and the window
-        uploads of a patch): a version is published only once its tensors
-        are complete, whatever stream a later query runs on."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for this thread's device work (the clones, the window
+        uploads and the shard patches) on every device the engine's tensors
+        live on: a version is published only once its tensors are complete,
+        whatever stream a later query runs on."""
+        for dev in self._devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def _stage_apply(self, state: dict) -> dict:
         batch: DeltaBatch = state["deltas"]
@@ -781,6 +1012,7 @@ class OnlineEngine:
             return res._replace(seconds=time.perf_counter() - t0)
 
 
-def make_online(name: str, x, *, device=None, **build_kw) -> OnlineEngine:
-    """Build engine ``name`` as an ``OnlineEngine`` over ``x`` on ``device``."""
-    return OnlineEngine(name, x, device=device, **build_kw)
+def make_online(name: str, x, *, device=None, mesh=None, axis_names=None, **build_kw) -> OnlineEngine:
+    """Build engine ``name`` as an ``OnlineEngine`` over ``x`` on ``device``
+    (a mesh engine: on ``mesh``)."""
+    return OnlineEngine(name, x, device=device, mesh=mesh, axis_names=axis_names, **build_kw)

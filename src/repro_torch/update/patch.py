@@ -16,6 +16,8 @@ out of scope, as everywhere else in the repo.)
 A copy of ``repro/update/patch.py`` with ``packing`` taken from the port
 (``repro_torch.core.packing``, whose numpy twins are the reference's): the
 "jnp build" below is the port's torch build, which equals it leaf for leaf.
+``level_windows`` is vectorized (the reference loops over every touched
+position in Python, minutes for a fill of millions of values).
 
 Window math (the reason patching is cheap): a doubling-table entry
 ``idx[k, c]`` covers ``[c, c + 2^k)`` (reads clamped at the array end stay
@@ -70,19 +72,18 @@ def level_windows(touched: np.ndarray, w: int, m: int) -> List[Tuple[int, int]]:
 
     The affected-column ranges for one table level: windows of adjacent
     touched positions merge, so scattered points stay scattered (two distant
-    writes patch two small windows, not their hull).
+    writes patch two small windows, not their hull). Vectorized: a window
+    starts a new run where it begins past the previous position + 1 (the
+    positions are sorted, so each run ends at its last position); equal to
+    the reference's loop, in numpy time for a fill of millions of values.
     """
-    out: List[Tuple[int, int]] = []
-    for p in touched:
-        p = int(p)
-        if p >= m:
-            p = m - 1  # clamped reads: the last column covers the overhang
-        a = max(p - w, 0)
-        if out and a <= out[-1][1] + 1:
-            out[-1] = (out[-1][0], max(out[-1][1], p))
-        else:
-            out.append((a, p))
-    return out
+    p = np.minimum(np.asarray(touched, np.int64), m - 1)  # clamped reads: the last column covers the overhang
+    if p.size == 0:
+        return []
+    a = np.maximum(p - w, 0)
+    starts = np.flatnonzero(np.concatenate([[True], a[1:] > p[:-1] + 1]))
+    ends = np.concatenate([starts[1:] - 1, [p.size - 1]])
+    return list(zip(a[starts].tolist(), p[ends].tolist()))
 
 
 def patch_doubling(

@@ -4,8 +4,10 @@ The round trip and atomicity of ``tests/test_system.py`` on a tree of
 tensors, the async save, and the format: on the same dict, nested-dict,
 list and NamedTuple trees the port writes the reference's ``manifest.json``
 and ``.npy`` files byte for byte, and each package restores the other's
-checkpoint. ``restore`` puts the leaves back as tensors on ``device``;
-``shardings=`` (a mesh) raises. Tolerance: exact, dtypes included.
+checkpoint. ``restore`` puts the leaves back as tensors on ``device``, or
+where ``shardings=`` places them: a mesh structure saved from an 8-shard
+mesh restores onto a (2, 4) mesh with the same global leaves (the elastic
+restore). Tolerance: exact, dtypes included.
 """
 
 import json
@@ -20,7 +22,9 @@ import torch
 
 from repro import checkpoint as jax_ckpt
 from repro_torch import checkpoint
-from torch_parity_util import to_np
+from repro_torch.core import distributed
+from repro_torch.launch.mesh import make_mesh
+from torch_parity_util import assert_same_structure, leaves, to_np
 
 Pair = namedtuple("Pair", "w b")
 
@@ -137,7 +141,46 @@ def test_restore_places_leaves_on_the_device(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             checkpoint.restore(str(tmp_path), 0, tree)  # default device: the card
-    with pytest.raises(NotImplementedError, match="step 11"):
-        checkpoint.restore(str(tmp_path), 0, tree, device="cpu", shardings=object())
+    placed = checkpoint.restore(
+        str(tmp_path), 0, tree, shardings={"a": torch.device("cpu"), "b": [torch.device("cpu"), None]}
+    )
+    _assert_trees_equal(tree, placed)
+    with pytest.raises(ValueError, match="leaves"):
+        checkpoint.restore(str(tmp_path), 0, tree, shardings={"a": torch.device("cpu"), "b": [None, None]})
+    with pytest.raises(ValueError, match=r"\['c'\] where the tree has \['b'\]\[0\]"):  # same count, other keys
+        checkpoint.restore(str(tmp_path), 0, tree, shardings={"a": torch.device("cpu"), "c": torch.device("cpu")})
     with pytest.raises(ValueError, match="shape"):
         checkpoint.restore(str(tmp_path), 0, {"a": torch.zeros(5), "b": [torch.zeros(2)]}, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["sharded_st", "distributed"])
+def test_elastic_restore_onto_another_mesh(engine, tmp_path):
+    """A mesh structure saved from an (8,) mesh restores onto a (2, 4) mesh
+    through ``shardings=`` (``Placement`` per leaf, the port's
+    ``NamedSharding``): the same global leaves, and the reference restores
+    the same checkpoint to the same arrays."""
+    x = np.random.default_rng(5).integers(0, 9, 4096).astype(np.float32)
+    m8 = make_mesh((8,), ("shard",), devices="cpu")
+    m24, axes = make_mesh((2, 4), ("data", "model"), devices="cpu"), ("data", "model")
+    if engine == "sharded_st":
+        tree = distributed.build_sharded_st(x, m8, ("shard",))
+        place = distributed.ShardedSparseTable(*(distributed.Placement(m24, axes, 1),) * 2)
+    else:
+        tree = distributed.build_sharded(x, m8, ("shard",), 128)
+        rows, cols = distributed.Placement(m24, axes, 0), distributed.Placement(m24, axes, 1)
+        place = type(tree)(rows, rows, rows, type(tree.st)(cols, rows))
+    checkpoint.save(str(tmp_path), 1, tree)
+    out = checkpoint.restore(str(tmp_path), 1, tree, shardings=place)
+    assert_same_structure(tree, out)
+    for (_, a), (_, b) in zip(leaves(tree), leaves(out)):
+        assert b.num_shards == 8 and b.dim == a.dim and b.copies[0].keys() == {torch.device("cpu")}
+    host = jax.tree_util.tree_map(np.asarray, jax_ckpt.restore(str(tmp_path), 1, _host_like(tree)))
+    for (_, a), b in zip(leaves(tree), jax.tree_util.tree_leaves(host)):
+        np.testing.assert_array_equal(to_np(a), b)
+
+
+def _host_like(tree):
+    """``tree`` with numpy leaves, the reference's ``like``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*map(_host_like, tree))
+    return np.asarray(tree)

@@ -28,6 +28,7 @@ from repro_torch.kernels.fused_query import (
 from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
 from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
 from repro_torch.launch import serve
+from torch_parity_util import assert_same_structure
 
 pytestmark = pytest.mark.cuda
 
@@ -467,3 +468,54 @@ def test_mesh_engines_serve_cli_on_card(cuda, capsys):
     assert "verify: 8/8 requests bit-identical to the oracle" in out and "device(s) (cuda" in out
     serve.main(["--engine", "distributed", "--n", "65536", "--batch", "1024", "--batches", "2"])
     assert "verify[64] OK" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["shard_structure", "shard_2d"])
+def test_mesh_patch_on_card(cuda, mode):
+    """An online sharded hybrid on a (2, 4) mesh of the card: a tie across
+    a shard boundary and a fill over three shards patch on the card (no
+    kernel launched), a version pinned before them keeps its tensors, and
+    the final leaves equal a from-scratch build of the mutated array."""
+    from repro_torch.core import build as build_mod
+    from repro_torch.launch.mesh import make_mesh
+
+    rng = np.random.default_rng(20)
+    n = 1 << 16
+    x = rng.integers(0, 4, n).astype(np.float32)
+    mesh = make_mesh((2, 4), ("data", "model"), devices=[cuda])
+    eng = update.make_online("sharded_hybrid", x, mesh=mesh, axis_names=("data", "model"), mode=mode)
+    old = eng.pin()
+    before = old.state.st.idx.full().clone()
+    launches = fused_query.launches + block_min.launches + fused_query_packed.launches
+    xm = x.copy()
+    c = n // 8
+    for log in (update.DeltaLog().point(c - 1, -7.0).point(c, -7.0), update.DeltaLog().fill(c - 9, 3 * c + 9, 0.25)):
+        assert eng.apply(log).patched
+        xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+        l, r = _queries(rng, n, 4099)
+        ver = eng.pin()
+        idx, val = eng.query(ver.state, l, r)
+        eng.release(ver.vid)
+        gold = ref.rmq_ref(xm, l, r)
+        np.testing.assert_array_equal(idx.cpu().numpy(), gold)
+        np.testing.assert_array_equal(val.cpu().numpy(), xm[gold])
+    assert fused_query.launches + block_min.launches + fused_query_packed.launches == launches
+    assert torch.equal(old.state.st.idx.full(), before)
+    eng.release(old.vid)
+    st = eng.store.current.state
+    plan = build_mod.plan_for("sharded_hybrid", n, mesh=mesh, axis_names=("data", "model"), block_size=128,
+                              threshold=int(st.threshold), mode=mode)
+    fresh = build_mod.execute(plan, xm)
+    assert_same_structure((fresh.blocked, fresh.st), (st.blocked, st.st))
+
+
+def test_fleet_soak_on_card(cuda):
+    """A small durable fleet soak on the card: three hybrid replicas, then
+    three sharded_hybrid replicas of two positions each on the one card
+    (``devices=[cuda:0] * 6``): an injected mid-rollout crash and an
+    external crash + restore, nothing lost, every answer the oracle's."""
+    from repro_torch.serve.fleet import run_fleet_soak
+
+    for engine, kw in (("hybrid", {}), ("sharded_hybrid", {"devices": [torch.device("cuda", 0)] * 6})):
+        report = run_fleet_soak(engine=engine, replicas=3, n=1 << 12, requests=48, updates=4, seed=1, **kw)
+        assert report.ok, report.summary()

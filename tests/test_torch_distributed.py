@@ -7,10 +7,15 @@ leaves (``build_sharded``, ``build_sharded_st``) on a ``(8,)`` and a
 ``(2, 4)`` mesh for n in 512, 5000, 1057, 17, 8, 1; a mixed short/long
 batch through ``distributed`` and ``sharded_hybrid`` in its three modes
 (unpacked and packed); the cross-shard ties, the boundary-straddling tie,
-the signed-zero merges and the maxval-only ranges. The port builds the same
-on CPU meshes of the same shapes (8 shards on the CPU, one process) and
-equals it leaf for leaf (dtypes included) and answer for answer; the same
-leaves through ``convert`` answer as the reference does. The five RMQ
+the signed-zero merges and the maxval-only ranges; the online patch
+sequence of ``tests/test_update.py``'s 8-device child for ``distributed``,
+each ``sharded_hybrid`` mode and packed32, its leaves after every log; and
+a durable mesh root (``tests/test_fault.py``'s 8-device timeline). The
+port builds and patches the same on CPU meshes of the same shapes (8 shards
+on the CPU, one process) and equals it leaf for leaf (dtypes included) and
+answer for answer; the same leaves through ``convert`` answer as the
+reference does, and the durable roots match byte for byte and restore
+across packages. The five RMQ
 children of ``tests/test_distributed.py`` and the allocation probes of
 ``tests/test_build_plan.py`` run here in-process. Tolerance: exact (values
 compared bit for bit).
@@ -28,14 +33,17 @@ import sys
 import textwrap
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import fault as jax_fault
 from repro.core import ref
-from repro_torch import convert
+from repro_torch import convert, update
 from repro_torch.core import block_rmq, distributed, hybrid, sharded_hybrid, sparse_table
 from repro_torch.core import build as build_mod
+from repro_torch.fault import DurableEngine
 from repro_torch.launch.mesh import make_mesh
 from torch_parity_util import leaves, to_np
 
@@ -59,7 +67,7 @@ _CHILD = textwrap.dedent(
               "2x4": (make_mesh((2, 4), ("data", "model")), ("data", "model"))}
 
     def put(key, a):
-        out[key] = np.asarray(a)
+        out[key] = np.array(a)  # a copy: a CPU array may share its buffer
 
     # The sharded leaves at the halo child's sizes (dense ties).
     for tag, (mesh, axes) in meshes.items():
@@ -166,6 +174,59 @@ _CHILD = textwrap.dedent(
                 h = sharded_hybrid.build(jnp.asarray(x), mesh, axes, 128, threshold=thr,
                                          mode=mode, packed=packed)
                 put(f"maxval/{dtype}/{mode}/{thr}/{packed}", sharded_hybrid.query(h, L, R)[0])
+    # The online patch sequence of tests/test_update.py's 8-device child, the
+    # patched leaves after every log: on (8,), and shard_2d on (2, 4) too
+    # (the other runs split the structure 8 ways on either mesh, and so
+    # have the same global leaves).
+    from repro import update
+    from repro.fault import DurableEngine
+    from repro.update.deltas import DeltaLog
+
+    def logs(t50, t9000):
+        return [
+            DeltaLog().point(1023, -7.0).point(1024, -7.0),  # tie across a shard boundary
+            DeltaLog().fill(500, 1600, 0.25),  # a range over three shards
+            DeltaLog().append(t50),  # inside the blocked capacity
+            DeltaLog().append(t9000),  # past every capacity: a rebuild
+        ]
+
+    runs = {"distributed": ("distributed", {}, np.float32),
+            "shard_structure": ("sharded_hybrid", {"mode": "shard_structure"}, np.float32),
+            "shard_batch": ("sharded_hybrid", {"mode": "shard_batch"}, np.float32),
+            "shard_2d": ("sharded_hybrid", {"mode": "shard_2d"}, np.float32),
+            "packed32": ("packed_sharded_hybrid", {"packed": "packed32"}, np.int32)}
+    for tag, (mesh, axes) in meshes.items():
+        for run, (name, kw, dt) in runs.items():
+            if tag == "2x4" and run != "shard_2d":
+                continue
+            rng = np.random.default_rng(7)
+            x = rng.integers(0, 4, 4096).astype(dt)
+            t50, t9000 = (rng.integers(0, 4, k).astype(dt) for k in (50, 9000))
+            for k, a in (("x", x), ("t50", t50), ("t9000", t9000)):
+                put(f"{tag}/patch/{run}/{k}", a)
+            eng = update.make_online(name, jnp.asarray(x), mesh=mesh, axis_names=axes, **kw)
+            for i, log in enumerate(logs(t50, t9000)):
+                put(f"{tag}/patch/{run}/{i}.patched", np.array(eng.apply(log).patched))
+                state = eng.store.current.state
+                tree = state[0] if name == "distributed" else (state.blocked, state.st)
+                arrays = [a for a in jax.tree_util.tree_leaves(tree) if isinstance(a, jax.Array)]
+                for j, a in enumerate(arrays):
+                    put(f"{tag}/patch/{run}/{i}.leaf{j}", a)
+
+    # A durable mesh root (tests/test_fault.py's 8-device child): three logs,
+    # a checkpoint after the first.
+    mesh, axes = meshes["8"]
+    x = out["8/patch/shard_structure/x"]
+    root = sys.argv[1] + ".durable"
+    d = DurableEngine.create("sharded_hybrid", jnp.asarray(x), root, mesh=mesh, axis_names=axes,
+                             mode="shard_structure")
+    tails = (out["8/patch/shard_structure/t50"], out["8/patch/shard_structure/t9000"])
+    for i, log in enumerate(logs(*tails)[:3]):
+        d.apply(log)
+        if i == 0:
+            d.checkpoint()
+    put("durable/live", np.array([d.current_vid, d.seq]))
+    d.close()
     np.savez(sys.argv[1], **out)
     print("REFERENCE_CHILD_OK")
     """
@@ -174,7 +235,8 @@ _CHILD = textwrap.dedent(
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference child's results (one subprocess, 8 fake XLA devices)."""
+    """The reference child's results (one subprocess, 8 fake XLA devices);
+    ``"durable/root"`` names the durable root it wrote."""
     path = tmp_path_factory.mktemp("reference") / "mesh.npz"
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -185,7 +247,9 @@ def reference(tmp_path_factory):
     )
     assert "REFERENCE_CHILD_OK" in out.stdout, out.stderr[-3000:]
     with np.load(path) as z:
-        return {k: z[k] for k in z.files}
+        res = {k: z[k] for k in z.files}
+    res["durable/root"] = str(path) + ".durable"
+    return res
 
 
 def _mesh(tag):
@@ -538,3 +602,135 @@ def test_maxval_only_ranges_on_mesh(reference, dtype, run):
     want = reference[f"maxval/{dtype}/{run}"]
     at_fault = run == "distributed" or run.endswith("/10/None")
     np.testing.assert_array_equal(want, [0, 0, 0] if at_fault else gold)
+
+
+# --- online patches and durable roots against the reference's child ---------
+
+PATCH_RUNS = {
+    "distributed": ("distributed", {}),
+    "shard_structure": ("sharded_hybrid", {"mode": "shard_structure"}),
+    "shard_batch": ("sharded_hybrid", {"mode": "shard_batch"}),
+    "shard_2d": ("sharded_hybrid", {"mode": "shard_2d"}),
+    "packed32": ("packed_sharded_hybrid", {"packed": "packed32"}),
+}
+
+
+def _patch_logs(t50, t9000):
+    return [
+        update.DeltaLog().point(1023, -7.0).point(1024, -7.0),  # tie across a shard boundary
+        update.DeltaLog().fill(500, 1600, 0.25),  # a range over three shards
+        update.DeltaLog().append(t50),  # inside the blocked capacity
+        update.DeltaLog().append(t9000),  # past every capacity: a rebuild
+    ]
+
+
+def _mesh_tree(name, state):
+    return state[0] if name == "distributed" else (state.blocked, state.st)
+
+
+def _port_rebuild(name, online, xm, mesh, axes, kw):
+    """A from-scratch port build of ``xm`` with the online engine's resolved
+    block size and threshold pinned (a packed engine: under its current
+    spec, which a patch keeps while a fresh build would re-derive it)."""
+    spec = online.store.current.state.spec if name == "packed_sharded_hybrid" else None
+    if spec is not None:  # shard_structure: both tiers over every axis
+        return (distributed.build_sharded_packed(xm, mesh, axes, 128, spec),
+                distributed.build_sharded_st_packed(xm, mesh, axes, spec))
+    if name == "distributed":
+        plan = build_mod.plan_for("distributed", xm.shape[0], mesh=mesh, axis_names=axes, block_size=128)
+    else:
+        thr = int(online.store.current.state.threshold)
+        plan = build_mod.plan_for(
+            "sharded_hybrid", xm.shape[0], mesh=mesh, axis_names=axes, block_size=128, threshold=thr,
+            mode=kw.get("mode", "shard_structure"), packed=kw.get("packed"),
+        )
+    return _mesh_tree(name, build_mod.execute(plan, xm))
+
+
+@pytest.mark.parametrize("run", sorted(PATCH_RUNS))
+@pytest.mark.parametrize("tag", sorted(MESHES))
+def test_mesh_patches_match_reference(reference, tag, run):
+    """The online patch sequence of ``tests/test_update.py``'s 8-device
+    child (a tie across a shard boundary, a fill over three shards, an
+    append inside the blocked capacity, one past every capacity): after
+    every log the port's leaves equal the reference's (on a (2, 4) mesh:
+    those of the reference's (8,) mesh, but for ``shard_2d``, whose
+    structure there has 2 shards), dtypes included, and
+    a from-scratch port build of the mutated array; ``patched`` agrees; a
+    version pinned before the log keeps its leaves; answers are the
+    oracle's."""
+    name, kw = PATCH_RUNS[run]
+    mesh, axes = _mesh(tag)
+    key = f"{tag if run == 'shard_2d' else '8'}/patch/{run}"  # the child's meshes
+    x = reference[f"{key}/x"]
+    online = update.make_online(name, x, mesh=mesh, axis_names=axes, **kw)
+    xm = x.copy()
+    rng = np.random.default_rng(8)
+    for i, log in enumerate(_patch_logs(reference[f"{key}/t50"], reference[f"{key}/t9000"])):
+        old = online.pin()
+        before = [to_np(a).copy() for _, a in leaves(_mesh_tree(name, old.state))]
+        res = online.apply(log)
+        assert res.patched == bool(reference[f"{key}/{i}.patched"]), (i, res)
+        for a, (_, b) in zip(before, leaves(_mesh_tree(name, old.state))):
+            _same(a, b)  # copy-on-write: the pinned version never changes
+        online.release(old.vid)
+        xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+        got = leaves(_mesh_tree(name, online.store.current.state))
+        assert f"{key}/{i}.leaf{len(got)}" not in reference  # as many leaves
+        for j, (_, g) in enumerate(got):
+            _same(reference[f"{key}/{i}.leaf{j}"], g)
+        for (_, w), (_, g) in zip(leaves(_port_rebuild(name, online, xm, mesh, axes, kw)), got):
+            _same(to_np(w), g)
+        l, r = rng.integers(0, xm.shape[0], 300), rng.integers(0, xm.shape[0], 300)
+        l, r = np.minimum(l, r), np.maximum(l, r)
+        ver = online.pin()
+        idx, val = online.query(ver.state, l, r)
+        online.release(ver.vid)
+        gold = ref.rmq_ref(xm, l, r)
+        np.testing.assert_array_equal(to_np(idx), gold)
+        _same(xm[gold], val)
+
+
+def test_mesh_durable_root_crosses_packages(reference, tmp_path):
+    """``tests/test_fault.py``'s 8-device durable timeline written by the
+    port on an 8-shard CPU mesh is the reference child's root byte for byte;
+    the reference's root restores in the port on a (2, 4) mesh, leaf for
+    leaf equal to the port's live engine, and the port's root restores in
+    the reference (in-process, on its one-device mesh) at the same version,
+    seq and array."""
+    ref_root = reference["durable/root"]
+    key = "8/patch/shard_structure"
+    x = reference[f"{key}/x"]
+    mesh, axes = _mesh("8")
+    root = str(tmp_path / "port")
+    d = DurableEngine.create("sharded_hybrid", x, root, mesh=mesh, axis_names=axes, mode="shard_structure")
+    xm = x.copy()
+    for i, log in enumerate(_patch_logs(reference[f"{key}/t50"], reference[f"{key}/t9000"])[:3]):
+        d.apply(log)
+        xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+        if i == 0:
+            d.checkpoint()
+    assert [d.current_vid, d.seq] == reference["durable/live"].tolist() == [3, 3]
+    a, b = Path(ref_root), Path(root)
+    files = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(str(p.relative_to(b)) for p in b.rglob("*") if p.is_file())
+    assert "ckpt/step_00000001/manifest.json" in files
+    for f in files:
+        assert (a / f).read_bytes() == (b / f).read_bytes(), f
+    mesh24, axes24 = _mesh("2x4")
+    pr = DurableEngine.restore(ref_root, mesh=mesh24, axis_names=axes24)
+    assert (pr.current_vid, pr.seq, pr.replayed) == (3, 3, 2)
+    for (_, w), (_, g) in zip(leaves(_mesh_tree("sharded_hybrid", d.store.current.state)),
+                              leaves(_mesh_tree("sharded_hybrid", pr.store.current.state))):
+        _same(to_np(w), g)
+    jr = jax_fault.DurableEngine.restore(root)
+    assert (jr.current_vid, jr.seq, jr.replayed) == (3, 3, 2)
+    np.testing.assert_array_equal(np.asarray(jr.store.current.x_host), xm)
+    l = np.array([0, 1000, 1023, 2000])
+    r = np.array([xm.shape[0] - 1, 1030, 1024, 2100])
+    ver = jr.pin()
+    np.testing.assert_array_equal(np.asarray(jr.query(ver.state, jnp.asarray(l), jnp.asarray(r))[0]),
+                                  ref.rmq_ref(xm, l, r))
+    jr.release(ver.vid)
+    for e in (d, pr, jr):
+        e.close()

@@ -1,24 +1,27 @@
 """repro_torch's crash safety against the reference's (``tests/test_fault.py``).
 
-Every single-host scenario of the reference file, one for one and under the
-same name, on the port: the fault plan, the journal (round trip, abort
-markers, torn tail, compaction, an injected append failure), ``DeltaBatch``
-bytes (equal to the reference's), restore = checkpoint + journal suffix
+Every scenario of the reference file, one for one and under the same
+name, on the port: the fault plan, the journal (round trip, abort markers,
+torn tail, compaction, an injected append failure), ``DeltaBatch`` bytes
+(equal to the reference's), restore = checkpoint + journal suffix
 bit-identical for every updatable engine, the torn journal tail, the failed
 checkpoint, the poisoned engine's recovery, the supervised server's cases
-and ``RMQServer(restore=)``. Covered elsewhere and not repeated here:
+and ``RMQServer(restore=)``. The reference's 8-device child
+(``test_sharded_durable_restore_on_8_device_mesh``) runs in-process on an
+8-shard CPU mesh. Covered elsewhere and not repeated here:
 ``test_degraded_fallback_matches_oracle`` by
 ``tests/test_torch_online_serve.py::test_online_breaker_answers_through_the_degraded_fallback``.
-The 8-device child (``test_sharded_durable_restore_on_8_device_mesh``)
-comes with the multi-device engines.
 
-Then the durable root across packages, for each of the five engines: the
-same timeline (two updates, a mid checkpoint, an injected apply failure
-with its abort marker and recovery, the update again, an append) written
-by each package gives the same journal and checkpoint files byte for byte,
-a root the reference wrote restores in the port and one the port wrote
-restores in the reference, leaf for leaf with the same version id, seq and
-replay count. Everything runs on the CPU; tolerance: exact.
+Then the durable root across packages, for each of the eight updatable
+engines: the same timeline (two updates, a mid checkpoint, an injected
+apply failure with its abort marker and recovery, the update again, an
+append) written by each package gives the same journal and checkpoint files
+byte for byte, a root the reference wrote restores in the port and one the
+port wrote restores in the reference, leaf for leaf with the same version
+id, seq and replay count. The port runs a mesh engine on an 8-shard CPU
+mesh, the reference in-process on its one-device mesh: a mesh engine's
+root is its array, so it does not depend on the mesh. Everything runs on
+the CPU; tolerance: exact.
 """
 
 import os
@@ -35,13 +38,23 @@ from repro import update as jax_update
 from repro.update.deltas import DeltaLog as JaxDeltaLog
 from repro_torch import checkpoint as ckpt_mod
 from repro_torch import update
-from repro_torch.core import ref
+from repro_torch.core import ref, registry
 from repro_torch.fault import DurableEngine, FaultPlan, FaultSpec, InjectedFault, Journal
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import DeadlineExceeded, EngineFailure, RMQServer, ServeConfig, ServerClosed
 from repro_torch.update.deltas import DeltaBatch, DeltaLog
 from torch_parity_util import assert_same_structure, to_np
 
-SINGLE_HOST_UPDATABLE = sorted(update.online_names())
+UPDATABLE = sorted(update.online_names())
+MESH8 = make_mesh((8,), ("shard",), devices="cpu")
+
+
+def _where(name):
+    """Where the port runs ``name``: a mesh engine on the 8-shard CPU mesh,
+    any other on the CPU."""
+    if registry.get(name).needs_mesh:
+        return {"mesh": MESH8, "axis_names": ("shard",)}
+    return {"device": "cpu"}
 
 
 def _state(d):
@@ -58,11 +71,11 @@ def _mutations(n):
 
 
 def _create(name, x, root, **kw):
-    return DurableEngine.create(name, x, root, device="cpu", **kw)
+    return DurableEngine.create(name, x, root, **_where(name), **kw)
 
 
-def _restore(root, **kw):
-    return DurableEngine.restore(root, device="cpu", **kw)
+def _restore(root, name="hybrid", **kw):
+    return DurableEngine.restore(root, **_where(name), **kw)
 
 
 # --- fault plan determinism ---------------------------------------------------
@@ -227,7 +240,7 @@ def test_delta_batch_bytes_roundtrip():
 # --- checkpoint + restore, every single-host updatable engine -----------------
 
 
-@pytest.mark.parametrize("name", SINGLE_HOST_UPDATABLE)
+@pytest.mark.parametrize("name", UPDATABLE)
 def test_durable_restore_bit_identical(name, tmp_path):
     """Restore = checkpoint + journal suffix, bit-identical to the live
     engine, with version-id continuity — for every updatable engine."""
@@ -243,14 +256,14 @@ def test_durable_restore_bit_identical(name, tmp_path):
         if i == 0:
             d.checkpoint()  # restore crosses a checkpoint + a journal suffix
 
-    r = _restore(root)
+    r = _restore(root, name)
     assert r.current_vid == d.current_vid
     assert r.n == d.n == xm.shape[0]
     assert r.replayed == 2  # the two post-checkpoint batches
     assert_same_structure(_state(d), _state(r))
 
     # Replay idempotence: restoring the same root again converges.
-    r2 = _restore(root)
+    r2 = _restore(root, name)
     assert r2.current_vid == r.current_vid and r2.seq == r.seq
     assert_same_structure(_state(r), _state(r2))
 
@@ -361,12 +374,45 @@ def test_engine_poisoned_message_matches_reference():
         assert (port.engine, port.seq, port.cause) == ("hybrid", seq, cause)
 
 
-def test_durable_engine_names_the_multi_device_step(tmp_path):
-    x = np.arange(64, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="step 11"):
-        DurableEngine.create("hybrid", x, str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="step 11"):
-        DurableEngine.restore(str(tmp_path), device="cpu", mesh=object())
+@pytest.mark.parametrize("name,kw", [("distributed", {}), ("sharded_hybrid", {"mode": "shard_structure"})])
+def test_sharded_durable_restore_on_8_device_mesh(name, kw, tmp_path):
+    """The reference's 8-device child, in-process on an 8-shard CPU mesh:
+    a checkpoint after the first of three logs (a shard-boundary tie, a
+    range over three shards, an append), a restore that replays the other
+    two and equals the live patched leaves, and answers that equal the
+    oracle."""
+    axes = ("shard",)
+    rng = np.random.default_rng(4)
+    n = 4096  # 8 shards x 512 cols
+    x = rng.integers(0, 4, n).astype(np.float32)
+    root = str(tmp_path / name)
+    d = DurableEngine.create(name, x, root, mesh=MESH8, axis_names=axes, **kw)
+    xm = x.copy()
+    logs = [
+        DeltaLog().point(1023, -7.0).point(1024, -7.0),  # shard-boundary tie
+        DeltaLog().fill(500, 1600, 0.25),  # 3-shard range
+        DeltaLog().append(rng.integers(0, 4, 50).astype(np.float32)),
+    ]
+    for i, log in enumerate(logs):
+        d.apply(log)
+        xm = log.coalesce(xm.shape[0], xm.dtype).apply_numpy(xm)
+        if i == 0:
+            d.checkpoint()
+    r = DurableEngine.restore(root, mesh=MESH8, axis_names=axes)
+    assert r.current_vid == d.current_vid and r.replayed == 2
+    assert r.mesh is MESH8 and ckpt_mod.load_snapshot(os.path.join(root, "ckpt"))[0].keys() == {"x"}
+    assert_same_structure(_state(d), _state(r))
+    l = rng.integers(0, xm.shape[0], 200)
+    rr = rng.integers(0, xm.shape[0], 200)
+    l, rr = np.minimum(l, rr), np.maximum(l, rr)
+    ver = r.pin()
+    idx, val = r.query(ver.state, l, rr)
+    r.release(ver.vid)
+    gold = ref.rmq_ref(xm, l, rr)
+    np.testing.assert_array_equal(to_np(idx), gold)
+    np.testing.assert_array_equal(to_np(val), xm[gold])
+    assert r.recover() == 2 and r.mesh is MESH8  # in place, on the same mesh
+    d.close(), r.close()
 
 
 # --- supervised serving -------------------------------------------------------
@@ -550,11 +596,12 @@ def test_server_restore_kwarg_serves_restored_engine(tmp_path):
 CROSS_N = 1536
 PORT = SimpleNamespace(
     Durable=DurableEngine, DeltaLog=DeltaLog, FaultPlan=FaultPlan, FaultSpec=FaultSpec,
-    InjectedFault=InjectedFault, kw={"device": "cpu"}, array=lambda a: a,
+    InjectedFault=InjectedFault, kw=_where, array=lambda a: a,
 )
 REFERENCE = SimpleNamespace(
     Durable=jax_fault.DurableEngine, DeltaLog=JaxDeltaLog, FaultPlan=jax_fault.FaultPlan,
-    FaultSpec=jax_fault.FaultSpec, InjectedFault=jax_fault.InjectedFault, kw={}, array=jnp.asarray,
+    FaultSpec=jax_fault.FaultSpec, InjectedFault=jax_fault.InjectedFault, kw=lambda name: {},
+    array=jnp.asarray,
 )
 
 
@@ -564,7 +611,7 @@ def _timeline(pkg, name, x, root):
     resubmitted, and an append; then a crash (the journal closed). Returns
     the live engine's (current_vid, seq)."""
     plan = pkg.FaultPlan(seed=0, specs={"patch_apply": pkg.FaultSpec(at=(3,))})
-    d = pkg.Durable.create(name, pkg.array(x), root, fault=plan, **pkg.kw)
+    d = pkg.Durable.create(name, pkg.array(x), root, fault=plan, **pkg.kw(name))
     n = x.shape[0]
     d.apply(pkg.DeltaLog().point(0, -3.0).point(n - 1, -3.0))
     d.apply(pkg.DeltaLog().fill(n // 4, n // 4 + 70, 0.125))
@@ -579,7 +626,7 @@ def _timeline(pkg, name, x, root):
     return live
 
 
-@pytest.fixture(scope="module", params=SINGLE_HOST_UPDATABLE)
+@pytest.fixture(scope="module", params=UPDATABLE)
 def roots(request, tmp_path_factory):
     name = request.param
     x = np.random.default_rng(11).integers(0, 5, CROSS_N).astype(np.float32)
@@ -595,25 +642,34 @@ def roots(request, tmp_path_factory):
     return out
 
 
-def _restore_both(root):
-    """The same root restored by each package: (reference, port)."""
-    return REFERENCE.Durable.restore(root), DurableEngine.restore(root, device="cpu")
-
-
-def _assert_same_restore(jr, pr, roots):
+def _assert_same_restore(root, roots):
+    """The same root restored by each package: the same version id, seq,
+    replay count and array, and the same leaves. A mesh engine's leaves
+    depend on its mesh: the port's 8-shard restore equals its own build on
+    that mesh, and the root restored on the CPU's one-shard mesh equals the
+    reference's."""
+    jr, pr = REFERENCE.Durable.restore(root), _restore(root, roots.name)
     assert (jr.current_vid, jr.seq, jr.replayed) == (pr.current_vid, pr.seq, pr.replayed)
     assert (pr.current_vid, pr.seq, pr.replayed) == (*roots.live, 2)  # seq 3 aborted
-    assert_same_structure(_state(jr), _state(pr))
     np.testing.assert_array_equal(np.asarray(pr.store.current.x_host), roots.xm)
+    if registry.get(roots.name).needs_mesh:
+        build_kw = pr.online.snapshot()[1]["build_kw"]
+        fresh = update.make_online(roots.name, roots.xm, **_where(roots.name), **build_kw)
+        assert_same_structure(fresh.store.current.state, _state(pr))
+        one = DurableEngine.restore(root, device="cpu")
+        assert_same_structure(_state(jr), _state(one))
+        one.close()
+    else:
+        assert_same_structure(_state(jr), _state(pr))
     jr.close(), pr.close()
 
 
 def test_reference_root_restores_in_the_port(roots):
-    _assert_same_restore(*_restore_both(roots.ref), roots)
+    _assert_same_restore(roots.ref, roots)
 
 
 def test_port_root_restores_in_the_reference(roots):
-    _assert_same_restore(*_restore_both(roots.port), roots)
+    _assert_same_restore(roots.port, roots)
 
 
 def test_durable_roots_are_byte_identical(roots):

@@ -58,6 +58,9 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.launch.mesh",
         "repro_torch.core.distributed",
         "repro_torch.core.sharded_hybrid",
+        "repro_torch.serve.fleet",
+        "repro_torch.update.versions",
+        "repro_torch.fault.inject",
     ):
         assert mod in res["imported"]
 

@@ -2,16 +2,14 @@
 
 Ports of the reference's mesh cases that run on one device: the three
 modes on a one-shard mesh beside the reference's one-device mesh
-(``tests/test_conformance.py``), the packed tier on an 8-shard mesh
-(``tests/test_packing.py``, without the online patch, which is queue 1 step
-11b) and its quantized refusal, the mesh calibration cases of
+(``tests/test_conformance.py``), the packed tier on an 8-shard mesh with
+its online patch (``tests/test_packing.py``) and its quantized refusal, the mesh calibration cases of
 ``tests/test_calibration.py`` through the ``_measure`` / ``calibrate``
 seams, the registry's capability metadata of ``tests/test_serve.py``, the
 stage sequences of ``tests/test_build_plan.py``, the serve CLI with
 ``--qshard``, ``--qshard 2d`` and ``--engine distributed``, and an
 ``RMQServer`` with two workers over an 8-shard CPU mesh, every answer held
-to the oracle. Also ``launch.mesh`` and the step-11b refusals. Tolerance:
-exact.
+to the oracle. Also ``launch.mesh``. Tolerance: exact.
 """
 
 import threading
@@ -21,15 +19,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro import update as jax_update
 from repro.core import calib_cache as jax_cache
 from repro.core import ref
 from repro.core import registry as jax_registry
 from repro.core import sharded_hybrid as jax_sharded_hybrid
 from repro.launch.mesh import make_mesh as jax_make_mesh
-from repro_torch import checkpoint, update
+from repro_torch import update
 from repro_torch.core import block_rmq, calib_cache, hybrid, registry, sharded_hybrid
 from repro_torch.core import build as build_mod
-from repro_torch.fault import DurableEngine
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import factor_2d, make_group_mesh, make_mesh, make_production_mesh, set_mesh
 from repro_torch.serve import RMQServer, ServeConfig
@@ -285,7 +283,8 @@ def test_capability_metadata_drives_flags():
     dist = registry.get("distributed")
     assert dist.needs_mesh and dist.build_kwargs == jax_registry.get("distributed").build_kwargs
     assert registry.plan_for_serving("distributed", 4096, "cpu").meta["block_size"] == 1024
-    assert not any(registry.get(n).updatable for n in ("distributed", "sharded_hybrid", "packed_sharded_hybrid"))
+    for name in ("distributed", "sharded_hybrid", "packed_sharded_hybrid"):
+        assert registry.get(name).updatable and jax_registry.get(name).updatable
 
 
 def test_build_for_serving_validates_kwargs():
@@ -360,8 +359,17 @@ def test_serve_cli_mesh_flag_validation(capsys):
         serve.main(["--device", "cpu", "--engine", "sharded_hybrid", "--packed", "quantized", "--n", "1024"])
     assert "single-host only" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--mode", "async", "--engine", "sharded_hybrid", "--mutate", "2", "--n", "1024"])
-    assert "--mutate requires an updatable engine" in capsys.readouterr().err
+        serve.main(["--device", "cpu", "--engine", "sharded_hybrid", "--mutate", "2", "--n", "1024"])
+    assert "--mutate requires --mode async" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--engine", "sharded_hybrid", "--replicas", "3", "--n", "1024"])
+    assert "--replicas > 1 requires --mode async" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--mode", "async", "--engine", "lane", "--replicas", "2", "--n", "1024"])
+    assert "--replicas > 1 requires an updatable engine" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--engine", "distributed", "--chaos", "1", "--replicas", "2", "--mode", "async"])
+    assert "--chaos runs a single-engine soak" in capsys.readouterr().err
 
 
 # --- serving over an 8-shard mesh --------------------------------------------
@@ -415,15 +423,44 @@ def test_concurrent_queries_share_one_mesh_state():
     assert not any(t.is_alive() for t in threads) and errors == []
 
 
-# --- what waits for step 11b -------------------------------------------------
+@pytest.mark.parametrize("layout", ["packed32", "packed64"])
+def test_packed_mesh_online_patch_8_shards(layout):
+    """The online packed mesh patch of ``tests/test_packing.py``'s child: a
+    min-side value duplicated across shards patches incrementally and equals
+    a from-scratch packed build of the mutated array, leaf for leaf."""
+    rng = np.random.default_rng(0)
+    n = 1 << 11
+    x = (rng.integers(-1000, 1000, n).astype(np.int32) if layout == "packed32"
+         else rng.standard_normal(n).astype(np.float32))
+    mesh = _cpu_mesh()
+    eng = update.make_online("sharded_hybrid", x, mesh=mesh, axis_names=("shard",), threshold=64, packed=layout)
+    res = eng.apply(update.DeltaLog().point(3, x[5]).point(n - 7, x[5]))
+    assert res.patched
+    xm = x.copy()
+    xm[3] = xm[n - 7] = x[5]
+    plan = build_mod.plan_for(
+        "sharded_hybrid", n, mesh=mesh, axis_names=("shard",), block_size=128, threshold=64, packed=layout
+    )
+    fresh = build_mod.execute(plan, xm)
+    assert_same_structure((fresh.blocked, fresh.st), (eng.store.current.state.blocked, eng.store.current.state.st))
 
 
-def test_mesh_online_and_durable_paths_name_step_11b(tmp_path):
-    x = np.arange(64, dtype=np.float32)
-    for engine in ("distributed", "sharded_hybrid", "packed_sharded_hybrid"):
-        with pytest.raises(ValueError, match="step 11b"):
-            update.make_online(engine, x, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 11b"):
-        DurableEngine.create("hybrid", x, str(tmp_path), device="cpu", mesh=_cpu_mesh())
-    with pytest.raises(NotImplementedError, match="step 11b"):
-        checkpoint.restore(str(tmp_path), 0, {"a": torch.zeros(2)}, device="cpu", shardings=object())
+def test_packed32_growth_past_its_index_field_raises_in_both_packages():
+    """A packed32 mesh engine whose key span fills the word: an append past
+    the padded capacity needs a wider index field, which no packed32 spec
+    can give, so the rebuild raises and the engine fail-stops, in the
+    reference (on its one-device mesh) as in the port (8 shards); the
+    published version keeps serving."""
+    x = np.arange(4096, dtype=np.int32) * 128  # key span 2^19 - 128: 19 bits beside 12 index bits
+    tail = np.zeros(5000, np.int32)
+    jeng = jax_update.make_online("packed_sharded_hybrid", jnp.asarray(x), packed="packed32")
+    with pytest.raises(ValueError, match="packed32 cannot encode"):
+        jeng.apply(jax_update.DeltaLog().append(tail))
+    eng = update.make_online("packed_sharded_hybrid", x, mesh=_cpu_mesh(), axis_names=("shard",), packed="packed32")
+    with pytest.raises(ValueError, match="packed32 cannot encode"):
+        eng.apply(update.DeltaLog().append(tail))
+    assert eng.poisoned and jeng.poisoned and eng.current_vid == jeng.current_vid == 0
+    ver = eng.pin()
+    idx, _ = eng.query(ver.state, np.array([0, 100]), np.array([4095, 200]))
+    eng.release(ver.vid)
+    np.testing.assert_array_equal(to_np(idx), [0, 100])

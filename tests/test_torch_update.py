@@ -27,6 +27,7 @@ from repro.core import registry as jax_registry
 from repro_torch import convert, update
 from repro_torch.core import build as build_mod
 from repro_torch.core import ref, registry, sparse_table
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import RMQServer, ServeConfig
 from torch_parity_util import assert_same_structure, leaves, to_np
 
@@ -210,14 +211,14 @@ def test_registry_updatable_matches_online_implementations():
     assert set(registry.updatable_names()) == set(update.online_names())
     for name in registry.updatable_names():
         assert registry.get(name).serveable  # updatable implies serveable
-    # The reference's updatable engines that the port registers: the mesh
-    # engines are registered, but their online patches wait for queue 1
-    # step 11b, so the port does not declare them updatable yet.
+    # The reference's updatable engines that the port registers: all 8, the
+    # three mesh engines among them.
     ported = set(jax_registry.updatable_names()) & set(registry.names())
     mesh = {"distributed", "sharded_hybrid", "packed_sharded_hybrid"}
     assert {name for name in registry.names() if registry.get(name).needs_mesh} == mesh
-    assert ported - mesh == set(registry.updatable_names())
+    assert ported == set(registry.updatable_names())
     assert ported - mesh == {"sparse_table", "block128", "block256", "hybrid", "packed_hybrid"}
+    assert len(ported) == 8
 
 
 def test_non_updatable_engine_rejected():
@@ -226,9 +227,48 @@ def test_non_updatable_engine_rejected():
 
 
 @pytest.mark.parametrize("engine", ["distributed", "sharded_hybrid", "packed_sharded_hybrid"])
-def test_mesh_engines_name_the_multi_device_step(engine):
-    with pytest.raises(ValueError, match="step 11"):
-        _online(engine, np.arange(16.0, dtype=np.float32))
+def test_mesh_engines_patch_copy_on_write(engine):
+    """A mesh engine goes online on an 8-shard CPU mesh. A point write in
+    shard 5 patches: the answers are the oracle's, a version pinned before
+    it keeps its tensors unchanged, and the shards right of the write's
+    windows share their tensors with that version, not copies."""
+    mesh = make_mesh((8,), ("shard",), devices="cpu")
+    x = np.random.default_rng(3).integers(0, 4, 4096).astype(np.float32)
+    kw = {"packed": "packed64"} if engine == "packed_sharded_hybrid" else {}
+    online = update.make_online(engine, x, mesh=mesh, axis_names=("shard",), **kw)
+    assert online.mesh is mesh and online.device == torch.device("cpu")
+    old = online.pin()
+    before = [(p, to_np(a).copy()) for p, a in leaves(old.state)]
+    res = online.apply(update.DeltaLog().point(5 * 512 + 3, -9.0))
+    assert res.patched and res.touched_shards == 1
+    for (p, a), (_, b) in zip(before, leaves(old.state)):
+        np.testing.assert_array_equal(a, to_np(b), err_msg=p)
+    new = online.store.current.state
+    first = (lambda s: s[0]) if engine == "distributed" else (lambda s: s.blocked)
+    blocked_old, blocked_new = first(old.state), first(new)
+    leaf = blocked_old.blocks if engine == "packed_sharded_hybrid" else blocked_old.x_blocks
+    leaf_new = blocked_new.blocks if engine == "packed_sharded_hybrid" else blocked_new.x_blocks
+    assert leaf_new.part(6) is leaf.part(6) and leaf_new.part(5) is not leaf.part(5)
+    online.release(old.vid)
+    xm = x.copy()
+    xm[5 * 512 + 3] = -9.0
+    l, r = _bounded(np.random.default_rng(4), 4096, 128)
+    idx, val = _query(online, l, r)
+    gold = ref.rmq_ref(xm, l, r)
+    np.testing.assert_array_equal(to_np(idx), gold)
+    np.testing.assert_array_equal(to_np(val), xm[gold])
+
+
+def test_online_placement_is_checked():
+    x = np.arange(16.0, dtype=np.float32)
+    mesh = make_mesh((2,), ("shard",), devices="cpu")
+    with pytest.raises(ValueError, match="one device"):
+        update.make_online("hybrid", x, mesh=mesh)
+    with pytest.raises(ValueError, match="not both"):
+        update.make_online("sharded_hybrid", x, mesh=mesh, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            update.make_online("sharded_hybrid", x)  # the card's mesh by default: no CPU fallback
 
 
 # --- delta log --------------------------------------------------------------
@@ -283,6 +323,22 @@ def test_level_windows_merge_and_clip():
     assert update.level_windows(np.array([5]), 3, 100) == [(2, 5)]
     assert update.level_windows(np.array([1, 5, 50]), 3, 100) == [(0, 5), (47, 50)]
     assert update.level_windows(np.array([0]), 7, 100) == [(0, 0)]
+
+
+def test_level_windows_match_the_reference_loop():
+    """The vectorized merge equals the reference's loop on sorted positions
+    (duplicates, positions past the end, runs that touch and runs that do
+    not), every width."""
+    from repro.update.patch import level_windows as jax_level_windows
+
+    rng = np.random.default_rng(12)
+    for _ in range(300):
+        m = int(rng.integers(1, 400))
+        touched = np.sort(rng.integers(0, m + 20, int(rng.integers(1, 40))))
+        w = int(rng.integers(0, 70))
+        assert update.level_windows(touched, w, m) == jax_level_windows(touched, w, m), (touched, w, m)
+    fill = np.arange(1_000_000, 11_000_000)  # a fill of ten million values: one window
+    assert update.level_windows(fill, 1023, 1 << 26) == [(1_000_000 - 1023, 10_999_999)]
 
 
 def test_patch_doubling_matches_build_for_scattered_writes():
