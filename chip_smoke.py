@@ -159,7 +159,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the peak bytes. Then the serve CLI's ``--engine hybrid --mode async
    --replicas 3 --max-lag 2 --mutate 4`` (4 clients x 32 x 256 `small`
    at 200/s each), every request verified. No kernel is launched;
-8. one JSON ``kernels`` line, the wall time, the card line again, and the
+8. the LM substrate (``lm_phase``; no kernel of ``csrc/`` runs, as no
+   Pallas kernel runs in the reference's LM): qwen2-1.5b and zamba2-2.7b
+   whole and grok-1-314b at full width with its depth cut (``LM_MODELS``),
+   random weights from a ``torch.Generator`` on the card (seed 0), tokens
+   from ``data.pipeline.synthetic_batch``. Per model, with TF32 off: a
+   float32 prefill of 4 x 1024 and 16 teacher-forced decode steps, the last
+   held to a prefill of all 1040 tokens (relative max error <= 2e-3), a
+   17th step into the full cache must raise; the same weights at depth 1
+   (zamba2: one segment) on the card and on the CPU within ``LM_CPU_REL``;
+   a bf16 prefill (timed: ms, tokens/s, MFU) and 32 greedy decode steps
+   (ms per step beside the byte bound), every logit finite, the top-1
+   agreement with float32 and the peak memory. Then
+   ``F.scaled_dot_product_attention`` timed beside the port's
+   ``flash_attention`` at qwen2's prefill shape (a yardstick the port never
+   calls) and ``data.packing.pack_documents`` on the card over 20000
+   documents, equal to its CPU run, no bin over 2048, fill efficiency
+   > 0.7, its docs/s and ``block_rmq`` builds;
+9. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
@@ -201,6 +218,29 @@ N_FLEET = 1 << 24
 # (n^0.3 = 222), so the online hybrid's blocked path and its sparse table
 # each take part of every launch.
 ONLINE_THRESHOLD = 224
+# Phase 8, the LM substrate: (arch, float32 depth, bf16 depth, float32
+# overrides); a depth of None keeps the whole model. grok-1-314b needs about
+# 630 GB in bf16: 2 of its 64 layers fit the card in bf16 (about 23 GB), 1 in
+# float32 (about 26 GB).
+LM_MODELS = (
+    ("qwen2-1.5b", None, None, {}),
+    ("zamba2-2.7b", None, None, {}),
+    ("grok-1-314b", 1, 2, {"capacity_factor": 4.0}),
+)
+LM_BATCH, LM_PROMPT = 4, 1024  # the prefill: B x L tokens
+LM_CHECK_STEPS = 16  # float32 teacher-forced decode steps held to a full prefill
+LM_SERVE_STEPS = 32  # bf16 greedy decode steps
+LM_CPU_TOKENS = 64  # the CUDA-vs-CPU prompt (1 x 64), then two decode steps
+# float32 on both, one layer (segment): only the order of the sums differs;
+# the bound the CPU tests hold the port to against the reference
+LM_CPU_REL = 1e-4
+# bf16 against float32 on the same draws, the prefill's last logits: bf16's
+# rounding (2^-8 a step) carried through every layer. Measured on the H100:
+# 2.0e-2 (qwen2), 3.5e-2 (zamba2), 1.4e-2 (grok, 1 layer); about three times
+# the largest.
+LM_BF16_REL = 0.1
+LM_PACK_DOCS, LM_PACK_SEQ = 20000, 2048
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (data sheet)
 
 
 def _disk_free(path) -> int:
@@ -993,6 +1033,317 @@ def fleet_phase(torch, np, dev, drive, root) -> None:
 
     drive("serve CLI --replicas 3 --mutate 4, 2^24", fleet_cli, none=True)
     print(f"[phase] fleet took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 8: the LM substrate ------------------------------------------------
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b| (the reference tests' measure)."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _param_tensors(params: dict):
+    """The tensors of a parameter tree (a dict of tensors and dicts of them)."""
+    for v in params.values():
+        yield from (v.values() if isinstance(v, dict) else (v,))
+
+
+def _free(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_model(torch, np, dev, card, arch: str, depth32, depth16, over32: dict) -> None:
+    """One model of phase 8: the float32 checks, then the bf16 serving run."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import model, moe
+
+    cfg = configs.get_config(arch)
+    b, l, k, s = LM_BATCH, LM_PROMPT, LM_CHECK_STEPS, LM_SERVE_STEPS
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, num_layers=depth32 or cfg.num_layers, cache_pad=k, **f32, **over32)
+    # one slot past the timed steps: the traced step
+    cfg16 = dataclasses.replace(cfg, num_layers=depth16 or cfg.num_layers, cache_pad=s + 1)
+    if depth32 or depth16:
+        print(f"[lm] {arch}: full width, depth cut {cfg.num_layers} -> {cfg32.num_layers} in float32 and "
+              f"-> {cfg16.num_layers} in bf16 (the whole model: {cfg.param_count() * 2 / 1e9:.0f} GB in bf16)")
+    for key, val in over32.items():
+        print(f"[lm] {arch}: the float32 check runs at {key} = {val} (the config's: {getattr(cfg, key)}; "
+              f"{cfg.num_experts} experts / top-{cfg.top_k}: no token is dropped, so decode and the full "
+              f"prefill route alike)")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    tokens = pipeline.synthetic_batch(cfg32, b, l + k, seed=0, step=0, device=dev)["tokens"]
+
+    # (1) float32: prefill + k teacher-forced decode steps against a full prefill
+    p32 = model.init_params(cfg32, generator=gen(), device=dev)
+    logits32, cache = model.prefill(p32, tokens[:, :l], cfg32)
+    last32 = logits32[:, -1, : cfg.vocab_size]
+    top32 = last32.argmax(-1)
+    for t in range(k):
+        step, cache = model.decode_step(p32, tokens[:, l + t : l + t + 1], cache, cfg32)
+    full, _ = model.prefill(p32, tokens, cfg32)
+    err = _rel_err(step, full)
+    print(f"[lm] {arch} float32: prefill {b}x{l} + {k} decode steps vs a prefill of {l + k}: "
+          f"relative max error {err:.3e} (bound 2e-3)")
+    _require(err <= 2e-3, f"{arch}: decode vs full prefill {err} > 2e-3")
+    try:
+        model.decode_step(p32, tokens[:, -1:], cache, cfg32)
+    except ValueError:
+        print(f"[lm] {arch}: a decode step at length {cache.length} = capacity raises ValueError")
+    else:
+        _require(False, f"{arch}: a decode step past the cache's capacity did not raise")
+    del cache, step, full, logits32
+
+    # (2) the card against the port's CPU path, at depth 1 (one segment)
+    cut = cfg.attn_every or 1
+    cfg_c = dataclasses.replace(cfg32, num_layers=cut)
+    p_cut = {**p32, "layers": {n: t[:1] for n, t in p32["layers"].items()}}  # views
+    small = tokens[:1, : LM_CPU_TOKENS + 2]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        p = {k: ({n: t.to(d) for n, t in v.items()} if isinstance(v, dict) else v.to(d)) for k, v in p_cut.items()}
+        lg, c = model.prefill(p, small[:, :LM_CPU_TOKENS].to(d), cfg_c)
+        run = [lg]
+        for t in range(LM_CPU_TOKENS, LM_CPU_TOKENS + 2):
+            lg, c = model.decode_step(p, small[:, t : t + 1].to(d), c, cfg_c)
+            run.append(lg)
+        outs.append(torch.cat(run).cpu())
+        del p, c, run
+    err_c = _rel_err(outs[0], outs[1])
+    abs_c = float((outs[0] - outs[1]).abs().max())
+    print(f"[lm] {arch} float32, {cut} layer(s), 1x{LM_CPU_TOKENS} prefill + 2 decode steps: CUDA vs CPU "
+          f"max abs error {abs_c:.3e}, relative {err_c:.3e} (bound {LM_CPU_REL})")
+    _require(err_c <= LM_CPU_REL, f"{arch}: CUDA vs CPU {err_c} > {LM_CPU_REL}")
+    del p32, p_cut, outs
+    _free(torch)
+
+    # (3) bf16 serving: prefill, then s greedy decode steps. The bf16 prefill's
+    # last logits are held to the float32 one's (the same draws, rounded to
+    # bf16, at the float32 depth) within LM_BF16_REL.
+    agree_cfg = None
+    if cfg16.num_layers != cfg32.num_layers:  # the same draws at the float32 depth, in bf16
+        agree_cfg = dataclasses.replace(cfg32, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        pa = model.init_params(agree_cfg, generator=gen(), device=dev)
+        last16 = model.prefill(pa, tokens[:, :l], agree_cfg)[0][:, -1, : cfg.vocab_size]
+        del pa
+        _free(torch)
+    p16 = model.init_params(cfg16, generator=gen(), device=dev)
+    prompt = tokens[:, :l]
+    drops, routes = [], []
+
+    def recorded(*a, **kw):
+        out = moe_ffn(*a, **kw)
+        drops.append(out.dropped_frac)
+        return out
+
+    def routed(*a, **kw):  # the experts a layer's kept assignments reach
+        r = route(*a, **kw)
+        routes.append(r.expert.reshape(r.keep.shape)[r.keep])
+        return r
+
+    moe_ffn, route = moe.moe_ffn, moe.route
+    with mock.patch.object(moe, "moe_ffn", recorded):
+        logits, cache = model.prefill(p16, prompt, cfg16)
+    if agree_cfg is None:
+        last16 = logits[:, -1, : cfg.vocab_size]
+    agree = float((last16.argmax(-1) == top32).float().mean())
+    err16 = _rel_err(last16.float(), last32)
+    del last32
+    prefill_drop = [float(d) for d in drops]
+    finite = torch.isfinite(logits).all()  # on the card: no host sync per step
+    tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(s)]
+    drops.clear()
+    with mock.patch.object(moe, "moe_ffn", recorded), mock.patch.object(moe, "route", routed):
+        for e0, e1 in events:
+            e0.record()
+            logits, cache = model.decode_step(p16, tok, cache, cfg16)
+            e1.record()
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = float(np.median([e0.elapsed_time(e1) for e0, e1 in events]))
+    decode_drop = [float(d) for d in drops]
+    _require(bool(finite), f"{arch}: a bf16 logit is not finite")
+    _require(err16 <= LM_BF16_REL, f"{arch}: bf16 vs float32 prefill logits {err16} > {LM_BF16_REL}")
+    prefill_ms = _time_ms(torch, lambda: model.prefill(p16, prompt, cfg16), iters=5, warmup=1)
+    for label, fn in (("decode step", lambda: model.decode_step(p16, tok, cache, cfg16)),
+                      (f"prefill {b}x{l}", lambda: model.prefill(p16, prompt, cfg16))):
+        busy, wall, ops, top = _trace_ops(torch, fn)
+        print(f"[trace] {arch} bf16 {label} under torch.profiler: {ops} device ops, device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms (idle share {1 - busy / wall:.4f}); busiest: "
+              + "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:60]}" for e in top)
+              + f" ({card})")
+
+    # the decode step's byte bound: every bf16 weight it reads once (an untied
+    # embedding table only its b rows; of the experts, those this run's steps
+    # routed a kept assignment to, mean over the steps), the KV cache read at
+    # each step's length, the SSM states read and written
+    param_bytes = sum(t.numel() * t.element_size() for t in _param_tensors(p16))
+    if not cfg.tie_embeddings:
+        emb = p16["embed"]
+        param_bytes -= (emb.shape[0] - b) * emb.shape[1] * emb.element_size()
+    all_expert_bytes = param_bytes
+    if routes:
+        lay = p16["layers"]
+        per_expert = sum(lay[n][0, 0].numel() * lay[n].element_size() for n in ("w_gate", "w_up", "w_down"))
+        reached = float(np.mean([sum(int(torch.unique(e).numel()) for e in routes[i : i + cfg16.num_layers])
+                                 for i in range(0, len(routes), cfg16.num_layers)]))
+        param_bytes -= (cfg16.num_layers * cfg.num_experts - reached) * per_expert
+    kv_bytes = state_bytes = 0
+    if cache.k is not None:
+        a_, _, _, kvh, hd = cache.k.shape
+        kv_bytes = 2 * a_ * b * kvh * hd * cache.k.element_size() * float(np.mean([l + i + 1 for i in range(s)]))
+    if cache.ssd is not None:
+        state_bytes = 2 * (cache.conv.numel() * cache.conv.element_size() + cache.ssd.numel() * cache.ssd.element_size())
+    bound_ms = (param_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    n_active = cfg16.active_param_count()
+    mfu = 2.0 * n_active * b * l / (prefill_ms / 1e3) / BF16_FLOPS
+    # the projections prefill runs: no FLOPs for the embedding lookup, the
+    # unembedding at each sequence's last position only, zamba2's shared
+    # block at each of its applications (N_active counts it once)
+    table = cfg.padded_vocab * cfg.d_model
+    n_run = n_active - table * (1 if cfg.tie_embeddings else 2)
+    if "shared_attn" in p16:
+        n_run += (cfg16.num_layers // cfg.attn_every - 1) * sum(t.numel() for t in p16["shared_attn"].values())
+    proj_flops = 2.0 * n_run * b * l + 2.0 * table * b
+    mfu_proj = proj_flops / (prefill_ms / 1e3) / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    routed_note = ""
+    if routes:
+        routed_note = (f"; experts routed per layer {reached / cfg16.num_layers:.2f} of {cfg.num_experts} "
+                       f"(mean of {s} steps); counting all {cfg.num_experts}, as the batched einsum reads them: "
+                       f"{(all_expert_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    print(f"[lm] {arch} bf16 ({cfg16.num_layers} layers, {n_active} active parameters): prefill {b}x{l} "
+          f"{prefill_ms:.3f} ms, {b * l / (prefill_ms / 1e3):.0f} tokens/s, MFU {mfu_proj:.4f} (the projections "
+          f"prefill runs: the unembedding at the last position only, a shared block at each use) and {mfu:.4f} "
+          f"(2 N_active per token) over 989 TFLOP/s; decode {decode_ms:.3f} ms per step (median of {s} greedy steps) against a byte "
+          f"bound of {bound_ms:.4f} ms ({param_bytes:.0f} parameter B, {kv_bytes:.0f} KV B, {state_bytes} state B "
+          f"at 3.35 TB/s{routed_note}); max_memory_allocated {peak} B; all logits finite; bf16 vs float32 prefill "
+          f"logits at the last position: relative max error {err16:.3e} (bound {LM_BF16_REL}), top-1 agreement "
+          f"{agree:.2f}{' (at the float32 depth)' if agree_cfg else ''} ({card})")
+    if prefill_drop:
+        print(f"[lm] {arch} bf16 at capacity_factor {cfg16.capacity_factor}: dropped_frac per layer, prefill "
+              f"{prefill_drop}; decode mean {float(np.mean(decode_drop)):.4f}, max {max(decode_drop):.4f}")
+    del p16, cache, logits, tok
+    _free(torch)
+
+
+def _trace_ops(torch, fn):
+    """``fn()`` under ``torch.profiler`` (device activity only): device busy
+    ms, window ms, device ops, the three busiest kernels. The profiler adds
+    host time per op, so the window is a bound on the untraced one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return busy_ms, wall_ms, sum(e.count for e in events), events[:3]
+
+
+def lm_phase(torch, np, dev, drive, card) -> None:
+    """Phase 8: the LM substrate on the card (its forward passes are torch
+    ops: no kernel of ``csrc/`` runs, as no Pallas kernel runs in the
+    reference's). qwen2-1.5b and zamba2-2.7b whole, grok-1-314b at full
+    width with its depth cut (``LM_MODELS``); weights from a
+    ``torch.Generator`` on the card, seed 0; tokens from
+    ``data.pipeline.synthetic_batch`` (seed 0). Per model: (1) float32,
+    prefill of 4 x 1024 with ``cache_pad`` 16, 16 teacher-forced decode
+    steps, the last held to a prefill of all 1040 tokens (relative max error
+    <= 2e-3, the reference's bound), and a 17th step must raise (the cache
+    is full); (2) the same weights at depth 1 (zamba2: one segment) on the
+    card and on the CPU, 1 x 64 tokens and two decode steps, equal within
+    ``LM_CPU_REL``; (3) bf16: the same prefill, timed, its last logits held
+    to the float32 prefill's within ``LM_BF16_REL``, and 32 greedy decode
+    steps, every logit finite, against the decode step's byte bound. Then
+    ``F.scaled_dot_product_attention`` beside the port's
+    ``flash_attention`` at qwen2's prefill shape (a yardstick: the port
+    never calls it), and ``data.packing.pack_documents`` on the card over
+    20000 documents of at most 2048 tokens, equal to its CPU run."""
+    import torch.nn.functional as F
+    from unittest import mock
+
+    from repro_torch.core import block_rmq
+    from repro_torch.data import packing, pipeline
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    # TF32 off for the float32 checks; the bf16 reduced-precision reduction
+    # is left at PyTorch's default (on): the model's forward turns it off.
+    back = torch.backends
+    saved = (back.cuda.matmul.allow_tf32, back.cudnn.allow_tf32)
+    back.cuda.matmul.allow_tf32 = False
+    back.cudnn.allow_tf32 = False
+    try:
+        for arch, depth32, depth16, over32 in LM_MODELS:
+            drive(f"LM {arch}", lambda: _lm_model(torch, np, dev, card, arch, depth32, depth16, over32), none=True)
+
+        def yardstick():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            b, l, h, kv, hd = LM_BATCH, LM_PROMPT, 12, 2, 128  # qwen2-1.5b's attention
+            q = torch.randn((b, l, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+            kk, vv = (torch.randn((b, l, kv, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+            port = attention.flash_attention(q, kk, vv, causal=True, kv_chunk=LM_PROMPT)
+            lib = F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True, enable_gqa=True
+            ).transpose(1, 2)
+            err = float((port.float() - lib.float()).abs().max())
+            port_ms = _time_ms(torch, lambda: attention.flash_attention(q, kk, vv, causal=True, kv_chunk=LM_PROMPT))
+            lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True, enable_gqa=True))
+            flops = 2 * 2 * b * h * l * (l + 1) / 2 * hd  # QK^T and PV over the causal half
+            print(f"[lm] attention yardstick, qwen2-1.5b prefill shape q {tuple(q.shape)} bf16, causal GQA 12/2: "
+                  f"port flash_attention {port_ms:.4f} ms, library_ms (F.scaled_dot_product_attention, "
+                  f"is_causal, enable_gqa) {lib_ms:.4f} ms, bound {flops / BF16_FLOPS * 1e3:.4f} ms by "
+                  f"operations; outputs differ by at most {err:.3e} ({card})")
+            _require(err < 0.05, f"the port's flash_attention and SDPA differ by {err}")
+
+        drive("attention yardstick", yardstick, none=True)
+
+        def packer():
+            lengths = pipeline.synthetic_documents(LM_PACK_DOCS, LM_PACK_SEQ, seed=7)
+            with mock.patch.object(block_rmq, "build", wraps=block_rmq.build) as spy:
+                t0 = time.perf_counter()
+                assign, free = packing.pack_documents(lengths, LM_PACK_SEQ, device=dev)
+                t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            a_cpu, f_cpu = packing.pack_documents(lengths, LM_PACK_SEQ, device="cpu")
+            t_cpu = time.perf_counter() - t0
+            _require(np.array_equal(assign, a_cpu) and np.array_equal(free, f_cpu),
+                     "pack_documents on the card differs from its CPU run")
+            clipped = np.minimum(lengths, LM_PACK_SEQ)
+            used = np.bincount(assign, weights=clipped, minlength=free.shape[0]).astype(np.int64)
+            _require((assign >= 0).all() and (used <= LM_PACK_SEQ).all() and np.array_equal(used, LM_PACK_SEQ - free),
+                     "a packed bin overflows or the free space is wrong")
+            bins = int((free < LM_PACK_SEQ).sum())
+            eff = int(clipped.sum()) / (bins * LM_PACK_SEQ)
+            _require(eff > 0.7, f"fill efficiency {eff} <= 0.7")
+            print(f"[lm] pack_documents: {LM_PACK_DOCS} documents into {bins} sequences of {LM_PACK_SEQ}, fill "
+                  f"efficiency {eff:.4f}, {spy.call_count} block_rmq builds; on the card {t_card:.2f} s "
+                  f"({LM_PACK_DOCS / t_card:.0f} docs/s), on the CPU {t_cpu:.2f} s ({LM_PACK_DOCS / t_cpu:.0f} "
+                  f"docs/s); the assignment equal integer for integer ({card})")
+
+        drive("pack_documents 20000 docs", packer, none=True)
+    finally:
+        back.cuda.matmul.allow_tf32, back.cudnn.allow_tf32 = saved
+    print(f"[wall] phase 8 (LM substrate) took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2031,7 +2382,10 @@ def _main() -> int:
     # --- phase 7f: the replica fleet ----------------------------------------
     fleet_phase(torch, np, dev, drive, root)
 
-    # --- phase 8: the kernels line and the result ---------------------------
+    # --- phase 8: the LM substrate ------------------------------------------
+    lm_phase(torch, np, dev, drive, card)
+
+    # --- phase 9: the kernels line and the result ---------------------------
     fq = "src/repro/kernels/fused_query.py"
     source = {
         "block_min": ("src/repro_torch/csrc/block_min.cu", "src/repro/kernels/block_min.py:47"),

@@ -1,0 +1,18 @@
+"""qwen2-1.5b [dense] — 28L d_model=1536 12H (GQA kv=2) d_ff=8960
+vocab=151936 — GQA, QKV bias. [arXiv:2407.10671; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b",
+    family="dense",
+    num_layers=28,
+    d_model=1536,
+    num_heads=12,
+    num_kv_heads=2,
+    d_ff=8960,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    attn_shard="seq",  # 12 heads don't divide the 16-wide model axis
+)

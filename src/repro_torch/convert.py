@@ -7,7 +7,8 @@ port's structure on ``device``. Index leaves must be int32 and value leaves
 keep x's dtype, so a structure built by the reference and queried by the
 port answers exactly as the reference does. ``online_engine`` carries an
 online engine's state across: the reference's ``OnlineEngine.snapshot()``
-output resumes in the port at the same version.
+output resumes in the port at the same version. ``model_params`` and
+``model_cache`` carry an LM's parameter tree and decode cache across.
 
 The mesh structures (``distributed``, ``sharded_st``, ``sharded_hybrid``)
 take the reference's *global* leaves and a port ``launch.mesh.Mesh``: each
@@ -36,6 +37,8 @@ __all__ = [
     "distributed",
     "fused_rmq",
     "hybrid",
+    "model_cache",
+    "model_params",
     "online_engine",
     "sharded_hybrid",
     "sharded_st",
@@ -209,3 +212,43 @@ def sharded_hybrid(h, mesh, axis_names=None, *, spec=None) -> _sharded_hybrid.Sh
         dtype=torch.from_numpy(np.zeros(0, np.dtype(h.dtype))).dtype,
         spec=spec,
     )
+
+
+# --- the LM substrate ---------------------------------------------------------
+
+
+def _model_leaf(a, device, dtype) -> torch.Tensor:
+    """A reference leaf as a tensor. A bfloat16 numpy leaf (ml_dtypes, which
+    JAX registers in the caller's process) is read through float32, which
+    holds every bfloat16 value exactly, and keeps bfloat16 unless ``dtype``
+    says otherwise."""
+    a = np.asarray(a)
+    want = dtype
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+        want = dtype or torch.bfloat16
+    t = torch.from_numpy(np.array(a, order="C")).to(device)
+    return t if want is None else t.to(want)
+
+
+def model_params(params, device=None, dtype=None) -> dict:
+    """The port's parameter tree from the reference's nested dict of numpy
+    leaves (same paths), on ``device``, cast to ``dtype`` when given."""
+    dev = resolve(device)
+    return {
+        k: model_params(v, dev, dtype) if isinstance(v, dict) else _model_leaf(v, dev, dtype)
+        for k, v in params.items()
+    }
+
+
+def model_cache(cache, device=None):
+    """The port's decode ``Cache`` from the reference's (numpy leaves, or
+    None where a family has no such slot); ``length`` becomes an int."""
+    from repro_torch.models.transformer import Cache
+
+    dev = resolve(device)
+    leaf = {
+        f: None if getattr(cache, f) is None else _model_leaf(getattr(cache, f), dev, None)
+        for f in ("k", "v", "conv", "ssd")
+    }
+    return Cache(length=int(np.asarray(cache.length)), **leaf)

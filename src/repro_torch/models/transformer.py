@@ -1,0 +1,345 @@
+"""Decoder stacks for all families.
+
+Port of ``repro/models/transformer.py``. Per-layer parameters are stacked
+on a leading layer axis, as in the reference; where the reference scans
+over that axis (``lax.scan``), this module loops in Python over views of
+the stacked leaves. Heterogeneous patterns:
+
+  * gemma3 5:1 local:global — a per-layer ``is_global`` flag (bool tensor);
+  * zamba2 — Mamba2 segments, the *shared* attention block (one param set)
+    applied after each segment;
+  * MoE — expert weights stacked (L, E, D, F), dispatched per layer.
+
+Modes: "train"/"prefill" process full sequences (flash attention / chunked
+SSD); "decode" processes one token against a cache. The reference's
+sharding constraints on activations (``_act``) and its remat policies are
+the identity on one device and are left out.
+
+The decode cache is preallocated at its capacity, as a server's is:
+``decode`` writes the token's K/V and the new SSM states into the cache's
+tensors in place and returns the cache with ``length + 1``, so a cache
+passed to a decode step is used up. Each cache tensor carries the length
+its last decode step left it at; decoding again from a kept, earlier
+``Cache`` over those tensors raises ``ValueError`` (its SSM states and K/V
+slots have moved on), where the reference's functional decode would
+answer from it. Writing at ``length == capacity`` raises ``ValueError``
+too; the reference's ``dynamic_update_slice`` clamps that write onto the
+last slot and answers wrong.
+
+A forward runs under ``layers.reference_matmul`` (float32 accumulation of
+bf16 GEMMs, no TF32). The MoE grouping over a mesh (``cfg.mesh_model``
+with ``cfg.mesh_axis_sizes``, the reference's ``num_groups`` per DP shard)
+is not ported: such a config raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from . import attention as attn_lib
+from . import moe as moe_lib
+from . import ssm as ssm_lib
+from .layers import dense, embed, reference_matmul, rms_norm, rope, scalar, swiglu, unembed
+
+__all__ = ["forward", "Cache", "layer_flags"]
+
+
+class Cache(NamedTuple):
+    """Unified decode cache. Attention slots and/or SSM slots may be present.
+
+    k/v: (A, B, S, KV, hd) for the A attention layers of the model
+    conv/ssd: (M, B, K-1, C) / (M, B, H, P, N) for the M Mamba layers
+    length: int — number of valid tokens already in the cache.
+    """
+
+    k: Any = None
+    v: Any = None
+    conv: Any = None
+    ssd: Any = None
+    length: Any = None
+
+
+def layer_flags(cfg, device=None) -> torch.Tensor | None:
+    """Per-layer is_global flags (gemma3 5:1 pattern); None when uniform."""
+    if cfg.global_every:
+        i = torch.arange(cfg.num_layers, device=device)
+        return (i % cfg.global_every) == (cfg.global_every - 1)
+    return None
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views of the stacked leaves."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# sub-blocks
+# --------------------------------------------------------------------------
+
+
+def _attn_sublayer(p, x, cfg, *, positions, mode, is_global=None, ck=None, cv=None, length=None):
+    """Attention residual branch. Returns (delta, new_k, new_v)."""
+    b, l, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = rms_norm(x, p["ln1"])
+    q = dense(xn, p["wq"], p.get("bq")).reshape(b, l, h, hd)
+    k = dense(xn, p["wk"], p.get("bk")).reshape(b, l, kv, hd)
+    v = dense(xn, p["wv"], p.get("bv")).reshape(b, l, kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        # insert at position `length` (checked against the capacity by
+        # `forward`), then attend over length + 1 tokens
+        ck[:, length : length + 1] = k.to(ck.dtype)
+        cv[:, length : length + 1] = v.to(cv.dtype)
+        o = attn_lib.decode_attention(
+            q, ck, cv, length + 1, window=cfg.sliding_window, is_global=is_global
+        )
+        out_k, out_v = ck, cv
+    else:
+        o = attn_lib.flash_attention(
+            q, k, v, causal=True, window=cfg.sliding_window, is_global=is_global,
+            kv_chunk=cfg.attn_kv_chunk,
+        )
+        out_k, out_v = k, v
+    return dense(o.reshape(b, l, h * hd), p["wo"]), out_k, out_v
+
+
+def _ff_sublayer(p, x, cfg):
+    """FFN residual branch: dense SwiGLU or MoE (+optional dense residual)."""
+    xn = rms_norm(x, p["ln2"])
+    if cfg.num_experts:
+        if cfg.mesh_model and cfg.mesh_axis_sizes:
+            raise NotImplementedError(
+                "MoE groups per data-parallel shard (cfg.mesh_axis_sizes) are not ported; "
+                "the reference would route with num_groups = the DP size"
+            )
+        b, l, d = xn.shape
+        out = moe_lib.moe_ffn(
+            xn.reshape(b * l, d),
+            p["router"], p["w_gate"], p["w_up"], p["w_down"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        )
+        y = out.y.reshape(b, l, d)
+        if cfg.dense_residual:
+            y = y + swiglu(xn, p["wr_gate"], p["wr_up"], p["wr_down"])
+        return y, out.aux_loss
+    return swiglu(xn, p["w_gate"], p["w_up"], p["w_down"]), _zero(x)
+
+
+# --------------------------------------------------------------------------
+# family forwards
+# --------------------------------------------------------------------------
+
+
+def _fwd_attn_stack(params, x, cfg, *, positions, mode, cache: Cache | None):
+    """Dense / MoE / gemma-pattern attention stacks (one loop over layers)."""
+    flags = layer_flags(cfg, x.device)
+    aux = _zero(x)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        ck = cv = None
+        if cache is not None:
+            ck, cv = cache.k[i], cache.v[i]
+        delta, nk, nv = _attn_sublayer(
+            _layer(params["layers"], i), x, cfg, positions=positions, mode=mode,
+            is_global=None if flags is None else flags[i],
+            ck=ck, cv=cv, length=None if cache is None else cache.length,
+        )
+        x = x + delta
+        ff, aux_l = _ff_sublayer(_layer(params["layers"], i), x, cfg)
+        x = x + ff
+        aux = aux + aux_l
+        if mode == "prefill":  # train mode keeps no K/V
+            ks.append(nk)
+            vs.append(nv)
+    if mode == "prefill":
+        return x, aux, torch.stack(ks), torch.stack(vs)
+    if mode == "decode":
+        return x, aux, cache.k, cache.v
+    return x, aux, None, None
+
+
+def _fwd_ssm_stack(params, x, cfg, *, mode, cache: Cache | None):
+    """Pure Mamba2 stack (mamba2-2.7b)."""
+    n_l = next(iter(params["layers"].values())).shape[0]
+    if mode == "decode":
+        for i in range(n_l):
+            lp = _layer(params["layers"], i)
+            delta, st = ssm_lib.ssm_decode_step(
+                {k: v for k, v in lp.items() if k != "ln1"},
+                rms_norm(x[:, 0], lp["ln1"]), ssm_lib.SSMState(cache.conv[i], cache.ssd[i]), cfg,
+            )
+            cache.conv[i] = st.conv
+            cache.ssd[i] = st.ssd
+            x = x + delta[:, None]
+        return x, _zero(x), cache.conv, cache.ssd
+
+    convs, ssds = [], []
+    for i in range(n_l):
+        lp = _layer(params["layers"], i)
+        out = ssm_lib.ssm_forward(
+            {k: v for k, v in lp.items() if k != "ln1"}, rms_norm(x, lp["ln1"]), cfg,
+            return_state=(mode == "prefill"),
+        )
+        if mode == "prefill":
+            delta, st = out
+            convs.append(st.conv)
+            ssds.append(st.ssd)
+        else:
+            delta = out
+        x = x + delta
+    if mode == "prefill":
+        return x, _zero(x), torch.stack(convs), torch.stack(ssds)
+    return x, _zero(x), None, None
+
+
+def _fwd_hybrid(params, x, cfg, *, positions, mode, cache: Cache | None):
+    """Zamba2: Mamba2 segments + ONE shared attention block after each."""
+    every = cfg.attn_every
+    n_seg = cfg.num_layers // every
+    sp = params["shared_attn"]
+
+    new_convs, new_ssds, new_ks, new_vs = [], [], [], []
+    aux = _zero(x)
+    for s in range(n_seg):
+        lp_seg = _layer(params["layers"], s)
+        sub_cache = None
+        if cache is not None and mode == "decode":
+            sub_cache = Cache(
+                conv=cache.conv[s * every : (s + 1) * every],
+                ssd=cache.ssd[s * every : (s + 1) * every],
+                length=cache.length,
+            )
+        ck = cache.k[s] if (cache is not None and cache.k is not None) else None
+        cv = cache.v[s] if (cache is not None and cache.v is not None) else None
+
+        x, _, conv_s, ssd_s = _fwd_ssm_stack({"layers": lp_seg}, x, cfg, mode=mode, cache=sub_cache)
+
+        delta, nk, nv = _attn_sublayer(
+            sp, x, cfg, positions=positions, mode=mode,
+            ck=ck, cv=cv, length=None if cache is None else cache.length,
+        )
+        x = x + delta
+        ff, aux_l = _ff_sublayer(sp, x, cfg)
+        x = x + ff
+        aux = aux + aux_l
+        if mode == "prefill":
+            new_convs.append(conv_s)
+            new_ssds.append(ssd_s)
+            new_ks.append(nk)
+            new_vs.append(nv)
+
+    if mode == "prefill":
+        return (x, aux, torch.stack(new_ks), torch.stack(new_vs),
+                torch.cat(new_convs), torch.cat(new_ssds))
+    if mode == "decode":
+        return x, aux, cache.k, cache.v, cache.conv, cache.ssd
+    return x, aux, None, None, None, None
+
+
+# --------------------------------------------------------------------------
+# public entry
+# --------------------------------------------------------------------------
+
+
+_DECODED_TO = "_repro_decoded_to"  # the length a decode step left a cache tensor at
+
+
+def _claim(cache: Cache) -> None:
+    """Check that ``cache`` may take a decode step, then mark its tensors as
+    advanced to ``length + 1``: raises at capacity, and for a cache whose
+    tensors a later step has already moved on."""
+    length = int(cache.length)
+    if cache.k is not None and length >= cache.k.shape[2]:
+        raise ValueError(
+            f"decode past the cache: length {length} == capacity {cache.k.shape[2]}; "
+            "prefill with cfg.cache_pad at least the decode budget"
+        )
+    tensors = [t for t in (cache.k, cache.v, cache.conv, cache.ssd) if t is not None]
+    for t in tensors:
+        at = getattr(t, _DECODED_TO, length)
+        if at != length:
+            raise ValueError(
+                f"stale cache: it says length {length}, but a decode step from it already "
+                f"moved its tensors to {at}; a cache is used once (decode from the returned one)"
+            )
+    for t in tensors:
+        setattr(t, _DECODED_TO, length + 1)
+
+
+def forward(params, inputs, cfg, *, mode: str, cache: Cache | None = None):
+    """Run the stack.
+
+    inputs: int tokens (B, L), int32 or int64, or precomputed embeddings
+    (B, L, D) for the stubbed [vlm]/[audio] frontends. Returns
+    (logits_f32, aux_loss, Cache | None).
+    """
+    if mode == "decode":
+        _claim(cache)
+    with reference_matmul():
+        return _forward(params, inputs, cfg, mode=mode, cache=cache)
+
+
+def _forward(params, inputs, cfg, *, mode, cache):
+    if not inputs.is_floating_point():
+        x = embed(inputs, params["embed"], cfg.dtype)
+        if cfg.scale_embed:
+            x = x * scalar(cfg.d_model**0.5, cfg.dtype)
+    else:
+        x = inputs.to(cfg.dtype)
+    b, l = x.shape[0], x.shape[1]
+
+    if mode == "decode":
+        positions = torch.full((b, 1), cache.length, dtype=torch.int32, device=x.device)
+    else:
+        positions = torch.arange(l, dtype=torch.int32, device=x.device).expand(b, l)
+
+    family = cfg.family
+    new_cache = None
+    if family in ("dense", "moe", "vlm", "audio"):
+        x, aux, ks, vs = _fwd_attn_stack(params, x, cfg, positions=positions, mode=mode, cache=cache)
+        if mode == "prefill":
+            new_cache = _prefill_attn_cache(ks, vs, cfg, b, l)
+        elif mode == "decode":
+            new_cache = cache._replace(k=ks, v=vs, length=cache.length + 1)
+    elif family == "ssm":
+        x, aux, convs, ssds = _fwd_ssm_stack(params, x, cfg, mode=mode, cache=cache)
+        if mode == "prefill":
+            new_cache = Cache(conv=convs, ssd=ssds, length=l)
+        elif mode == "decode":
+            new_cache = cache._replace(conv=convs, ssd=ssds, length=cache.length + 1)
+    elif family == "hybrid":
+        x, aux, ks, vs, convs, ssds = _fwd_hybrid(
+            params, x, cfg, positions=positions, mode=mode, cache=cache
+        )
+        if mode == "prefill":
+            kc = _prefill_attn_cache(ks, vs, cfg, b, l)
+            new_cache = Cache(k=kc.k, v=kc.v, conv=convs, ssd=ssds, length=l)
+        elif mode == "decode":
+            new_cache = cache._replace(k=ks, v=vs, conv=convs, ssd=ssds, length=cache.length + 1)
+    else:
+        raise ValueError(f"unknown family {family}")
+
+    x = rms_norm(x, params["final_norm"])
+    if mode in ("prefill", "decode"):
+        x = x[:, -1:]  # only the last position produces a next-token logit
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return unembed(x, table), aux, new_cache
+
+
+def _prefill_attn_cache(ks, vs, cfg, b, l) -> Cache:
+    """Stacked per-layer K/V from prefill become the decode cache, padded
+    by ``cfg.cache_pad`` slots (the decode budget)."""
+    pad = cfg.cache_pad
+    if pad:
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+    return Cache(k=ks, v=vs, length=l)

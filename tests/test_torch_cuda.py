@@ -519,3 +519,38 @@ def test_fleet_soak_on_card(cuda):
     for engine, kw in (("hybrid", {}), ("sharded_hybrid", {"devices": [torch.device("cuda", 0)] * 6})):
         report = run_fleet_soak(engine=engine, replicas=3, n=1 << 12, requests=48, updates=4, seed=1, **kw)
         assert report.ok, report.summary()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+def test_lm_on_card_matches_cpu(cuda, arch):
+    """A reduced model on the card equals its CPU run: prefill, four decode
+    steps and every cache leaf. float32, with the caller's TF32 flag on:
+    the forward holds TF32 off (``layers.reference_matmul``), so the cuBLAS
+    and CPU sums differ only in order: 1e-4 relative, the bound the CPU
+    parity tests hold the port to against the reference."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model
+
+    cfg = reduce_for_smoke(get_config(arch))
+    params = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    on_card = {
+        k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda)) for k, v in params.items()
+    }
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 44)).astype(np.int32))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        runs = []
+        for p, dev in ((params, "cpu"), (on_card, cuda)):
+            logits, cache = model.prefill(p, tokens[:, :40].to(dev), cfg)
+            out = [logits.cpu()]
+            for t in range(40, 44):
+                logits, cache = model.decode_step(p, tokens[:, t : t + 1].to(dev), cache, cfg)
+                out.append(logits.cpu())
+            out += [getattr(cache, f).cpu() for f in ("k", "v", "conv", "ssd") if getattr(cache, f) is not None]
+            runs.append(out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(*runs):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-4

@@ -61,6 +61,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.serve.fleet",
         "repro_torch.update.versions",
         "repro_torch.fault.inject",
+        "repro_torch.configs.base",
+        "repro_torch.models.model",
+        "repro_torch.data.packing",
+        "repro_torch.launch.specs",
     ):
         assert mod in res["imported"]
 
