@@ -176,7 +176,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    calls) and ``data.packing.pack_documents`` on the card over 20000
    documents, equal to its CPU run, no bin over 2048, fill efficiency
    > 0.7, its docs/s and ``block_rmq`` builds;
-9. one JSON ``kernels`` line, the wall time, the card line again, and the
+9. LM training (``train_phase``; no kernel of ``csrc/`` runs, as no Pallas
+   kernel runs in the reference's training): (a) qwen2-1.5b whole (28
+   layers, 1,543,852,032 parameters), bf16 params with the float32 AdamW
+   master, 8 steps of 4 x 1024 on one fixed batch at lr 3e-4 (cosine,
+   warmup 2), remat as the config sets it: the loss must fall; step ms
+   (median of steps 3-8), tokens/s, MFU (6 N tokens per step over 989
+   TFLOP/s), the AdamW update alone against its byte bound, the peak
+   memory, a profiled step; (b) the same draws at depth 1 in float32, one
+   step of 1 x 128 on the card and on the CPU, every gradient and updated
+   master leaf within ``TRAIN_CPU_REL``; then in bf16, the loss and grad
+   norm within ``TRAIN_BF16_LOSS_REL``, the gradients within
+   ``TRAIN_BF16_GRAD_REL``, the master within 2 lr, the new params the
+   master cast to bf16; (c) ``train.runner.run_training``
+   at full width with the depth cut to 2, 8 steps, a checkpoint every 4, a
+   fault at step 5: one restart, the last checkpoint restored equal to the
+   live state bit for bit, a checkpoint's seconds and bytes (under
+   ``build/train_ckpt``, deleted at the end); (d) ``python -m
+   repro_torch.launch.train --arch granite-3-8b --smoke --steps 8`` on the
+   card; (e) reduced grok-1-314b on a (2, 4) mesh of the card (two MoE
+   groups): 3 steps, the losses equal to the same on the CPU within 1e-5;
+10. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
@@ -241,6 +261,21 @@ LM_CPU_REL = 1e-4
 LM_BF16_REL = 0.1
 LM_PACK_DOCS, LM_PACK_SEQ = 20000, 2048
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (data sheet)
+# Phase 9, LM training: the whole model's steps (bf16 params, float32 master)
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 3e-4, 2
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 1, 128  # (b): one step on the card and on the CPU
+# float32 on both, one layer: only the order of the sums differs; the bound
+# the CPU tests hold the port to against the reference
+TRAIN_CPU_REL = 1e-4
+TRAIN_CONDITIONED = 1e-2  # (b): a gradient at least this fraction of its leaf's largest
+# (b) in bf16 (params, activations, gradients; float32 master): the two
+# devices' bf16 ops round differently. Measured on the H100: loss 2.3e-5,
+# grad norm 4.3e-5, gradients 1.2e-2; the bounds are about 4 times that.
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 2e-4, 5e-2
+TRAIN_RUNNER_DEPTH, TRAIN_FAULT_STEP = 2, 5  # (c): the whole model's checkpoints would be 25 GB each
+TRAIN_MESH_REL = 1e-5  # (e): the losses, float32
 
 
 def _disk_free(path) -> int:
@@ -1346,6 +1381,263 @@ def lm_phase(torch, np, dev, drive, card) -> None:
     print(f"[wall] phase 8 (LM substrate) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 9: LM training ----------------------------------------------------
+
+
+def _held_close(name, got, want, lr_sum=0.0, ratios=None) -> float:
+    """max |got - want| over max |want| of one leaf (CPU tensors); with
+    ``ratios`` (an updated master leaf) only the elements whose gradient is
+    zero or at least 1% of the leaf's largest count, and the others must lie
+    within 2 lr: AdamW's m / sqrt(v) step carries the rounding of a small
+    gradient into the update almost undiminished (tests/test_torch_train_parity.py)."""
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.double().abs().max()) or 1.0
+    if ratios is not None:
+        fine = (ratios >= TRAIN_CONDITIONED) | (ratios == 0)
+        _require(float(diff.max()) <= 2 * lr_sum, f"{name}: an ill-conditioned element moved past 2 lr")
+        diff = diff[fine]
+    return float(diff.max()) / scale if diff.numel() else 0.0
+
+
+def train_phase(torch, np, dev, drive, card, root) -> None:
+    """Phase 9: LM training on the card (torch ops: no kernel of ``csrc/``
+    runs, as no Pallas kernel runs in the reference's training). (a)
+    qwen2-1.5b whole, bf16 params with the float32 master: 8 steps of
+    ``TRAIN_BATCH x TRAIN_SEQ`` on one fixed batch, the loss must fall; step
+    ms, tokens/s, MFU, the AdamW update alone against its byte bound, the
+    peak. (b) the same draws at depth 1 in float32, one step on the card and
+    one on the CPU: every gradient and updated master leaf within
+    ``TRAIN_CPU_REL``; then in bf16 (the bounds ``TRAIN_BF16_*``, the
+    master within 2 lr, the params the master cast). (c) ``run_training`` at qwen2's full width, depth 2, 8
+    steps, a checkpoint every 4, a fault at step 5: one restart, the last
+    checkpoint equal to the live state bit for bit. (d) the training CLI
+    for granite-3-8b --smoke on the card. (e) reduced grok on a (2, 4) mesh
+    of the card (2 MoE groups): 3 steps equal to the same on the CPU."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import checkpoint, configs
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model, moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import runner, steps
+
+    t_phase = time.perf_counter()
+    back = torch.backends
+    saved = (back.cuda.matmul.allow_tf32, back.cudnn.allow_tf32)
+    back.cuda.matmul.allow_tf32 = False
+    back.cudnn.allow_tf32 = False
+    ckpt_root = root / "build" / "train_ckpt"
+    b, l = TRAIN_BATCH, TRAIN_SEQ
+    lr_fn = adamw.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+
+    def mesh_on(d, shape=(1, 1)):
+        return make_mesh(shape, ("data", "model"), devices=d)
+
+    def to(tree, d):
+        return tree_map(lambda t: t.to(d), tree)
+
+    def whole():  # (a)
+        cfg = configs.get_config(TRAIN_ARCH)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = adamw.init(params)
+        n = sum(t.numel() for t in _param_tensors(params))  # param_count() leaves out the QKV biases, final norm
+        step, _ = steps.make_train_step(cfg, mesh_on(dev), lr_fn=lr_fn, batch=b, seq_len=l)
+        batch = pipeline.synthetic_batch(cfg, b, l, seed=0, step=0, device=dev)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(TRAIN_STEPS)]
+        losses = []
+        for e0, e1 in events:
+            e0.record()
+            params, opt, m = step(params, opt, batch)
+            e1.record()
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        losses = [float(x) for x in losses]
+        step_ms = float(np.median([e0.elapsed_time(e1) for e0, e1 in events[2:]]))
+        peak = torch.cuda.max_memory_allocated()
+        _require(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+        _require(losses[-1] < losses[0], f"{TRAIN_ARCH}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        # the AdamW update alone, on this state and one step's gradients
+        _, grads = steps.value_and_grad(params, batch, cfg)
+        update = lambda: adamw.update(grads, opt, lr_fn=lr_fn, param_dtype=cfg.param_dtype)
+        upd_ms = _time_ms(torch, update, iters=5, warmup=1)
+        # bytes it must move: each gradient (bf16) read, the master, mu and nu
+        # (float32) read and written, the new bf16 params written
+        upd_bytes = n * (2 + 3 * 4 * 2 + 2)
+        upd_bound = upd_bytes / HBM_BYTES_PER_S * 1e3
+        tokens = b * l
+        mfu = 6.0 * n * tokens / (step_ms / 1e3) / BF16_FLOPS
+        busy, wall, ops, top = _trace_ops(torch, lambda: step(params, opt, batch))
+        print(f"[train] {TRAIN_ARCH} whole ({cfg.num_layers} layers, {n} parameters (param_count() "
+              f"{cfg.param_count()}), bf16 params + float32 "
+              f"master, remat={cfg.remat} policy {cfg.remat_policy!r}): {TRAIN_STEPS} steps of {b}x{l} on one batch "
+              f"(seed 0), lr {TRAIN_LR} cosine (warmup {TRAIN_WARMUP}); losses "
+              f"{[round(x, 4) for x in losses]}; step {step_ms:.3f} ms (median of steps 3-{TRAIN_STEPS}, CUDA "
+              f"events), {tokens / (step_ms / 1e3):.0f} tokens/s, MFU {mfu:.4f} (6 N tokens per step over 989 "
+              f"TFLOP/s dense bf16, the H100 SXM data sheet); the AdamW update alone {upd_ms:.3f} ms against a "
+              f"byte bound of {upd_bound:.3f} ms ({upd_bytes} B at 3.35 TB/s); max_memory_allocated {peak} B "
+              f"({card})")
+        print(f"[trace] {TRAIN_ARCH} train step under torch.profiler: {ops} device ops, device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms (idle share {1 - busy / wall:.4f}); busiest: "
+              + "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:60]}" for e in top)
+              + f" ({card})")
+        del params, opt, grads, step, batch
+        _free(torch)
+
+    def card_vs_cpu(dtype):  # (b)
+        cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), num_layers=1, dtype=dtype, param_dtype=dtype)
+        params = model.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        batch = pipeline.synthetic_batch(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=0, step=0, device=dev)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            p, bt = to(params, d), to(batch, d)
+            t0 = time.perf_counter()
+            loss, grads = steps.value_and_grad(p, bt, cfg)
+            new, opt, m = adamw.update(grads, adamw.init(p), lr_fn=lr_fn, param_dtype=dtype)
+            loss, norm = float(loss), float(m["grad_norm"])
+            outs.append((loss, norm, *(to(t, "cpu") for t in (grads, opt.master, new)), time.perf_counter() - t0))
+            del p, bt, grads, opt, new
+        (l_gpu, n_gpu, g_gpu, w_gpu, p_gpu, t_gpu), (l_cpu, n_cpu, g_cpu, w_cpu, _, t_cpu) = outs
+        lr1 = float(lr_fn(torch.tensor(1, dtype=torch.int32)))
+        g_err = max(_held_close("grad", a.float(), b_.float()) for a, b_ in zip(leaves(g_gpu), leaves(g_cpu)))
+        l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        n_err = abs(n_gpu - n_cpu) / n_cpu
+        if dtype == torch.float32:
+            w_err = max(
+                _held_close("master", a, b_, lr1, (g.abs() / g.abs().max().clamp_min(1e-30)))
+                for a, b_, g in zip(leaves(w_gpu), leaves(w_cpu), leaves(g_cpu))
+            )
+            print(f"[train] {TRAIN_ARCH} float32 depth 1, one step of {TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: CUDA vs CPU "
+                  f"loss {l_err:.3e}, grad norm {n_err:.3e}, gradients {g_err:.3e}, updated master {w_err:.3e} "
+                  f"(relative max error per leaf, bound {TRAIN_CPU_REL}; the master on the elements whose gradient "
+                  f"is at least {TRAIN_CONDITIONED} of its leaf's largest, the rest within 2 lr); {t_gpu:.2f} s on "
+                  f"the card, {t_cpu:.2f} s on the CPU ({card})")
+            _require(max(l_err, n_err, g_err, w_err) <= TRAIN_CPU_REL, f"CUDA vs CPU train step beyond {TRAIN_CPU_REL}")
+        else:
+            # bf16 gradients differ by the two devices' bf16 rounding, which
+            # AdamW's m / sqrt(v) step carries into any element's sign: the
+            # master is held to 2 lr (a first step whose sign flipped moves
+            # just under that) plus the float32 rounding of its two updates,
+            # and the params must be it cast to bf16
+            eps = torch.finfo(torch.float32).eps
+            w_far = max(float((a.double() - b_.double()).abs().max()) for a, b_ in zip(leaves(w_gpu), leaves(w_cpu)))
+            w_over = max(float((a.double() - b_.double()).abs().max() - 2 * lr1 - eps * b_.abs().max())
+                         for a, b_ in zip(leaves(w_gpu), leaves(w_cpu)))
+            cast = all(p_.dtype == dtype and torch.equal(p_, w.to(dtype)) for p_, w in zip(leaves(p_gpu), leaves(w_gpu)))
+            print(f"[train] {TRAIN_ARCH} bf16 params (float32 master) depth 1, one step of {TRAIN_CPU_BATCH}x"
+                  f"{TRAIN_CPU_SEQ}: CUDA vs CPU loss {l_err:.3e}, grad norm {n_err:.3e} (bound {TRAIN_BF16_LOSS_REL}), "
+                  f"bf16 gradients {g_err:.3e} (relative max error per leaf, bound {TRAIN_BF16_GRAD_REL}), "
+                  f"updated master at most {w_far:.3e} apart (bound 2 lr = {2 * lr1:.3e} plus the float32 rounding), new params the master "
+                  f"cast to bf16: {cast}; {t_gpu:.2f} s on the card, {t_cpu:.2f} s on the CPU ({card})")
+            _require(max(l_err, n_err) <= TRAIN_BF16_LOSS_REL and g_err <= TRAIN_BF16_GRAD_REL and w_over <= 0
+                     and cast, "CUDA vs CPU bf16 train step beyond its bounds")
+        del params, batch, outs
+        _free(torch)
+
+    def runner_faults():  # (c)
+        cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), num_layers=TRAIN_RUNNER_DEPTH)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        params = model.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = adamw.init(params)
+        step, _ = steps.make_train_step(cfg, mesh_on(dev), lr_fn=lr_fn, batch=b, seq_len=l)
+        fired = []
+
+        def fault(s):
+            if s == TRAIN_FAULT_STEP and not fired:
+                fired.append(s)
+                raise RuntimeError(f"injected node failure at step {s}")
+
+        rcfg = runner.RunnerConfig(total_steps=TRAIN_STEPS, ckpt_dir=str(ckpt_root / "run"), ckpt_every=4, seed=0)
+        t0 = time.perf_counter()
+        rep = runner.run_training(step, params, opt, cfg, b, l, rcfg, fault_hook=fault, device=dev)
+        t_run = time.perf_counter() - t0
+        latest = checkpoint.latest_step(rcfg.ckpt_dir)
+        _require(rep.restarts == 1 and latest == TRAIN_STEPS,
+                 f"runner: restarts {rep.restarts}, latest checkpoint {latest}")
+        live = {"params": rep.params, "opt": rep.opt_state}
+        t0 = time.perf_counter()
+        back_tree = checkpoint.restore(rcfg.ckpt_dir, latest, live, device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        bits = lambda t: t.reshape(-1).view(torch.uint8)
+        same = all(a.dtype == b_.dtype and torch.equal(bits(a), bits(b_))
+                   for a, b_ in zip(leaves(live), leaves(back_tree)))
+        _require(same, "the last checkpoint restored differs from the live state")
+        del back_tree
+        t0 = time.perf_counter()
+        checkpoint.save(str(ckpt_root / "timed"), latest, live)
+        t_save = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in (ckpt_root / "timed").rglob("*") if f.is_file())
+        print(f"[train] run_training {TRAIN_ARCH} full width, depth {cfg.num_layers}: {rep.steps_done} steps done "
+              f"for {TRAIN_STEPS} (a fault at step {TRAIN_FAULT_STEP}: {rep.restarts} restart, replayed from step 4), "
+              f"latest checkpoint {latest}, restored bit for bit equal to the live state; {t_run:.2f} s in all; "
+              f"a checkpoint of {sum(t.numel() * t.element_size() for t in leaves(live))} tensor bytes ({on_disk} B on disk) written in {t_save:.2f} s "
+              f"(foreground), restored in {t_restore:.2f} s; losses {[round(x, 4) for x in rep.losses]} ({card})")
+        del rep, live, params, opt, step
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        _free(torch)
+
+    def cli():  # (d)
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-3-8b", "--smoke",
+                "--steps", "8", "--ckpt-dir", str(ckpt_root / "cli")]
+        shutil.rmtree(ckpt_root / "cli", ignore_errors=True)
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        done = [s for s in out.stdout.splitlines() if s.startswith("done:")]
+        _require(out.returncode == 0 and done and "on cuda" in done[-1],
+                 f"the training CLI failed: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+        print(f"[train] python -m repro_torch.launch.train --arch granite-3-8b --smoke --steps 8: {done[-1]} "
+              f"({time.perf_counter() - t0:.1f} s with the interpreter's start) ({card})")
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def moe_mesh():  # (e)
+        cfg = configs.reduce_for_smoke(configs.get_config("grok-1-314b"))
+        params = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        runs = []
+        groups = []
+        real = moe.moe_ffn
+
+        def recorded(*a, **kw):
+            groups.append(kw.get("num_groups"))
+            return real(*a, **kw)
+
+        for d in (dev, torch.device("cpu")):
+            mesh = mesh_on(d, (2, 4))
+            step, _ = steps.make_train_step(cfg, mesh, lr_fn=lr_fn, batch=4, seq_len=64)
+            p = to(params, d)
+            o = adamw.init(p)
+            losses = []
+            with mock.patch.object(moe, "moe_ffn", recorded):
+                for i in range(3):
+                    p, o, m = step(p, o, pipeline.synthetic_batch(cfg, 4, 64, seed=0, step=i, device=d))
+                    losses.append(float(m["loss"]))
+            runs.append(losses)
+        on_card, on_cpu = runs
+        err = max(abs(a - c) / abs(c) for a, c in zip(on_card, on_cpu))
+        _require(set(groups) == {2}, f"the (2, 4) mesh routed {set(groups)} MoE groups, not 2")
+        print(f"[train] reduced grok-1-314b on a (2, 4) mesh of the card (8 positions, one device), MoE groups 2: "
+              f"3 steps, losses {on_card} on the card and {on_cpu} on the CPU, relative max error "
+              f"{err:.3e} (bound {TRAIN_MESH_REL}) ({card})")
+        _require(err <= TRAIN_MESH_REL, f"the meshed grok run on the card vs the CPU: {err} > {TRAIN_MESH_REL}")
+
+    try:
+        drive(f"train {TRAIN_ARCH} whole", whole, none=True)
+        drive(f"train {TRAIN_ARCH} depth 1 card vs CPU, float32", lambda: card_vs_cpu(torch.float32), none=True)
+        drive(f"train {TRAIN_ARCH} depth 1 card vs CPU, bf16", lambda: card_vs_cpu(torch.bfloat16), none=True)
+        drive(f"run_training {TRAIN_ARCH} depth {TRAIN_RUNNER_DEPTH} with a fault", runner_faults, none=True)
+        drive("launch.train CLI granite --smoke", cli, none=True)
+        drive("grok (2, 4) mesh, 2 MoE groups", moe_mesh, none=True)
+    finally:
+        back.cuda.matmul.allow_tf32, back.cudnn.allow_tf32 = saved
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"[wall] phase 9 (LM training) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     """Runs every phase with the calibration cache in a temporary file of
     this run, so that no cache on the machine feeds it."""
@@ -2385,7 +2677,10 @@ def _main() -> int:
     # --- phase 8: the LM substrate ------------------------------------------
     lm_phase(torch, np, dev, drive, card)
 
-    # --- phase 9: the kernels line and the result ---------------------------
+    # --- phase 9: LM training ------------------------------------------------
+    train_phase(torch, np, dev, drive, card, root)
+
+    # --- phase 10: the kernels line and the result --------------------------
     fq = "src/repro/kernels/fused_query.py"
     source = {
         "block_min": ("src/repro_torch/csrc/block_min.cu", "src/repro/kernels/block_min.py:47"),

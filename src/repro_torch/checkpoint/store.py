@@ -10,8 +10,11 @@ The format is ``repro/checkpoint/store.py``'s, file for file: a tree is a
 nest of dicts, lists, tuples and NamedTuples, flattened in
 ``jax.tree_util``'s order and named by its ``keystr`` (dict keys sorted and
 written ``['name']``, sequence items ``[i]``, NamedTuple fields ``.name``),
-and tensors are saved as numpy arrays of the same dtype. So either package
-restores the other's checkpoints. ``restore`` puts the leaves back as
+and tensors are saved as numpy arrays of the same dtype. A bfloat16 leaf,
+which numpy has no dtype for, is written as the reference writes it through
+``ml_dtypes``: its raw 2-byte words under the ``.npy`` descr ``'<V2'``,
+with ``"dtype": "bfloat16"`` in the manifest, and read back through the
+same words. So either package restores the other's checkpoints. ``restore`` puts the leaves back as
 tensors on ``device``, or (``shardings=``, the reference's elastic restore)
 each leaf where its placement says: a ``torch.device``, or a
 ``core.distributed.Placement`` that splits it over a mesh axis, whatever
@@ -34,7 +37,9 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch._device import resolve, to_numpy
+from repro_torch._device import resolve
+from repro_torch._tree import children as _children
+from repro_torch._tree import rebuild
 
 __all__ = [
     "latest_step",
@@ -47,6 +52,39 @@ __all__ = [
 
 _PENDING: list[threading.Thread] = []
 
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"  # what numpy writes for ml_dtypes' bfloat16
+
+
+def _host(leaf) -> tuple:
+    """``(numpy array, manifest dtype)`` of a leaf, copied to host memory. A
+    bfloat16 tensor becomes its raw words as a ``V2`` array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view("V2"), _BF16
+        leaf = t.numpy()
+    a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def _write_npy(f, a: np.ndarray, dtype: str) -> None:
+    """``np.save``, except that a bfloat16 leaf gets the reference's header."""
+    if dtype != _BF16:
+        np.save(f, a)
+        return
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": _BF16_DESCR, "fortran_order": False, "shape": a.shape}
+    )
+    f.write(np.ascontiguousarray(a).tobytes())
+
+
+def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded ``.npy`` array as a tensor; a bfloat16 leaf from its words."""
+    if dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
 
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
@@ -54,18 +92,6 @@ def _fsync_dir(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
-
-
-def _children(tree):
-    """``[(key suffix, child)]`` of a container node in jax's order, or
-    None for a leaf."""
-    if isinstance(tree, dict):
-        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
-    if isinstance(tree, (list, tuple)):
-        return [(f"[{i}]", v) for i, v in enumerate(tree)]
-    return None
 
 
 def _flatten(tree, prefix: str = "") -> list:
@@ -86,12 +112,7 @@ def _unflatten(like, leaves: Iterator):
     kids = _children(like)
     if kids is None:
         return next(leaves)
-    vals = [_unflatten(v, leaves) for _, v in kids]
-    if isinstance(like, dict):
-        return dict(zip(sorted(like), vals))
-    if hasattr(like, "_fields"):
-        return type(like)(*vals)
-    return type(like)(vals)
+    return rebuild(like, [_unflatten(v, leaves) for _, v in kids])
 
 
 def save(
@@ -115,12 +136,12 @@ def save(
     flat = _flatten(tree)
     # Copy to host memory first (a device -> host copy for CUDA tensors) so
     # async writers never race live buffers.
-    host = [(k, to_numpy(v)) for k, v in flat]
+    host = [(k, *_host(v)) for k, v in flat]
     manifest = {
         "step": int(step),
         "leaves": [
-            {"key": k, "shape": list(a.shape), "dtype": str(a.dtype), "file": f"leaf_{i}.npy"}
-            for i, (k, a) in enumerate(host)
+            {"key": k, "shape": list(a.shape), "dtype": dt, "file": f"leaf_{i}.npy"}
+            for i, (k, a, dt) in enumerate(host)
         ],
         "meta": meta or {},
     }
@@ -130,9 +151,9 @@ def save(
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp, exist_ok=True)
-        for i, (_, a) in enumerate(host):
+        for i, (_, a, dt) in enumerate(host):
             with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
-                np.save(f, a)
+                _write_npy(f, a, dt)
                 f.flush()
                 os.fsync(f.fileno())
         if fault is not None:
@@ -241,7 +262,7 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
     flat = _flatten(like)
     if shardings is None:
         dev = resolve(device)
-        places = [lambda a: torch.from_numpy(a).to(dev)] * len(flat)
+        places = [lambda t: t.to(dev)] * len(flat)
     else:
         targets = _flatten(shardings)
         for k, ks in itertools.zip_longest([k for k, _ in flat], [k for k, _ in targets]):
@@ -250,16 +271,17 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
         places = [_placer(t) for _, t in targets]
     leaves = []
     for (k, ref), place in zip(flat, places):
-        a = np.load(os.path.join(path, by_key[k]["file"]))
+        e = by_key[k]
+        a = np.load(os.path.join(path, e["file"]))
         if a.shape != _shape(ref):
             raise ValueError(f"checkpoint leaf {k} has shape {a.shape}, the tree wants {_shape(ref)}")
-        leaves.append(place(a))
+        leaves.append(place(_tensor(a, e["dtype"])))
     return _unflatten(like, iter(leaves))
 
 
 def _placer(target) -> Callable:
-    """``numpy array -> leaf`` for one ``shardings`` leaf."""
+    """``host tensor -> leaf`` for one ``shardings`` leaf."""
     if hasattr(target, "place"):  # core.distributed.Placement
-        return lambda a: target.place(torch.from_numpy(a))
+        return target.place
     dev = resolve(target)
-    return lambda a: torch.from_numpy(a).to(dev)
+    return lambda t: t.to(dev)

@@ -5,14 +5,16 @@ a ``configs/<id>.py`` exporting CONFIG; the registry in
 ``configs/__init__.py`` resolves ``--arch <id>``. Reduced smoke variants are
 derived mechanically via ``reduce_for_smoke``.
 
-The fields that only steer sharding or XLA's cost model in the reference
-(``remat``, ``remat_policy``, ``unroll_layers``, ``attn_unroll``,
-``ssm_unroll``, ``attn_shard``, ``parallelism``, ``mesh_*``,
-``seq_parallel``) are kept so that a config means the same in both packages;
-the serving forward of this package reads none of them but one: an MoE
-forward raises ``NotImplementedError`` when ``mesh_model`` and
-``mesh_axis_sizes`` are set, since the reference then routes each
-data-parallel shard's tokens as its own group.
+The fields that steer sharding, remat or XLA's cost model in the
+reference are kept so that a config means the same in both packages. The
+port reads ``remat`` and ``remat_policy`` (a train-mode forward
+checkpoints each layer, ``models/transformer.py``), ``parallelism`` (the
+sharding rules, ``launch/sharding.py``) and the ``mesh_*`` fields that
+``train.steps`` sets from its mesh (an MoE layer then routes each
+data-parallel shard's tokens as its own group, as the reference does).
+``unroll_layers``, ``attn_unroll``, ``ssm_unroll``, ``attn_shard`` and
+``seq_parallel`` only steer XLA and its sharding constraints: nothing here
+reads them.
 """
 
 from __future__ import annotations
@@ -67,8 +69,8 @@ class ModelConfig:
     attn_kv_chunk: int = 1024
     # decode budget: prefill pads its KV cache by this many slots
     cache_pad: int = 0
-    # the reference's cost-model and sharding knobs (read here only by the
-    # MoE forward, which raises on mesh_model with mesh_axis_sizes)
+    # the reference's cost-model and sharding knobs (the mesh_* fields set
+    # by train.steps give an MoE layer its groups; see the module docstring)
     unroll_layers: bool = False
     attn_unroll: bool = False
     ssm_unroll: bool = False

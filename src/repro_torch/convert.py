@@ -8,7 +8,8 @@ keep x's dtype, so a structure built by the reference and queried by the
 port answers exactly as the reference does. ``online_engine`` carries an
 online engine's state across: the reference's ``OnlineEngine.snapshot()``
 output resumes in the port at the same version. ``model_params`` and
-``model_cache`` carry an LM's parameter tree and decode cache across.
+``model_cache`` carry an LM's parameter tree and decode cache across, and
+``opt_state`` its AdamW state.
 
 The mesh structures (``distributed``, ``sharded_st``, ``sharded_hybrid``)
 take the reference's *global* leaves and a port ``launch.mesh.Mesh``: each
@@ -40,6 +41,7 @@ __all__ = [
     "model_cache",
     "model_params",
     "online_engine",
+    "opt_state",
     "sharded_hybrid",
     "sharded_st",
     "sparse_table",
@@ -252,3 +254,21 @@ def model_cache(cache, device=None):
         for f in ("k", "v", "conv", "ssd")
     }
     return Cache(length=int(np.asarray(cache.length)), **leaf)
+
+
+def opt_state(state, device=None, dtype=None):
+    """The port's ``optim.AdamWState`` from the reference's (numpy leaves):
+    ``step`` stays an int32 0-d tensor, ``master``/``mu``/``nu`` are
+    parameter trees (cast to ``dtype`` when given)."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve(device)
+    step = np.asarray(state.step)
+    if step.dtype != np.int32 or step.shape != ():
+        raise TypeError(f"AdamWState.step must be a 0-d int32, got {step.dtype} {step.shape}")
+    return AdamWState(
+        step=torch.from_numpy(np.array(step)).to(dev),
+        master=model_params(state.master, dev, dtype),
+        mu=model_params(state.mu, dev, dtype),
+        nu=model_params(state.nu, dev, dtype),
+    )

@@ -12,8 +12,8 @@ the stacked leaves. Heterogeneous patterns:
 
 Modes: "train"/"prefill" process full sequences (flash attention / chunked
 SSD); "decode" processes one token against a cache. The reference's
-sharding constraints on activations (``_act``) and its remat policies are
-the identity on one device and are left out.
+sharding constraints on activations (``_act``) are the identity on one
+device and are left out.
 
 The decode cache is preallocated at its capacity, as a server's is:
 ``decode`` writes the token's K/V and the new SSM states into the cache's
@@ -27,9 +27,18 @@ too; the reference's ``dynamic_update_slice`` clamps that write onto the
 last slot and answers wrong.
 
 A forward runs under ``layers.reference_matmul`` (float32 accumulation of
-bf16 GEMMs, no TF32). The MoE grouping over a mesh (``cfg.mesh_model``
-with ``cfg.mesh_axis_sizes``, the reference's ``num_groups`` per DP shard)
-is not ported: such a config raises ``NotImplementedError``.
+bf16 GEMMs, no TF32). An MoE layer on a mesh (``cfg.mesh_model`` with
+``cfg.mesh_axis_sizes``, set by ``train.steps``) routes each data-parallel
+shard's tokens as its own group, as the reference does (``moe_groups``);
+where the groups live is placement, which this one-device forward leaves
+out.
+
+Remat: in ``mode="train"`` with ``cfg.remat``, each layer (and each use of
+zamba2's shared block) runs under ``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``: policy ``"nothing"`` keeps only the layer's
+input and recomputes the rest in the backward pass; ``"dots"`` also keeps
+the outputs of the products without batch dimensions (``mm``/``addmm``).
+Remat changes memory, not numbers.
 """
 
 from __future__ import annotations
@@ -78,6 +87,25 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _dots_saved():
+    """Selective-checkpoint contexts that keep the products without batch
+    dimensions: the reference's ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _remat(fn, cfg, mode: str):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` is on in
+    train mode (the reference's ``jax.checkpoint``), else ``fn``."""
+    if not (cfg.remat and mode == "train"):
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {"context_fn": _dots_saved} if cfg.remat_policy == "dots" else {}
+    return lambda *args, **kwargs: checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+
 # --------------------------------------------------------------------------
 # sub-blocks
 # --------------------------------------------------------------------------
@@ -112,26 +140,52 @@ def _attn_sublayer(p, x, cfg, *, positions, mode, is_global=None, ck=None, cv=No
     return dense(o.reshape(b, l, h * hd), p["wo"]), out_k, out_v
 
 
+def moe_groups(cfg, tokens: int) -> int:
+    """GShard groups of an MoE layer over ``tokens`` (b * l): the
+    data-parallel size when the config carries a mesh with a model axis
+    (``train.steps._with_mesh_axes``) and it divides the tokens, else 1."""
+    sizes = dict(cfg.mesh_axis_sizes)
+    if not (cfg.mesh_model and sizes):
+        return 1
+    dp_size = 1
+    for a in cfg.mesh_dp:
+        dp_size *= sizes[a]
+    return dp_size if tokens % dp_size == 0 else 1
+
+
 def _ff_sublayer(p, x, cfg):
     """FFN residual branch: dense SwiGLU or MoE (+optional dense residual)."""
     xn = rms_norm(x, p["ln2"])
     if cfg.num_experts:
-        if cfg.mesh_model and cfg.mesh_axis_sizes:
-            raise NotImplementedError(
-                "MoE groups per data-parallel shard (cfg.mesh_axis_sizes) are not ported; "
-                "the reference would route with num_groups = the DP size"
-            )
         b, l, d = xn.shape
         out = moe_lib.moe_ffn(
             xn.reshape(b * l, d),
             p["router"], p["w_gate"], p["w_up"], p["w_down"],
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            num_groups=moe_groups(cfg, b * l),
         )
         y = out.y.reshape(b, l, d)
         if cfg.dense_residual:
             y = y + swiglu(xn, p["wr_gate"], p["wr_up"], p["wr_down"])
         return y, out.aux_loss
     return swiglu(xn, p["w_gate"], p["w_up"], p["w_down"]), _zero(x)
+
+
+def _attn_ffn_layer(p, x, cfg, *, positions, mode, is_global=None, ck=None, cv=None, length=None):
+    """One attention + FFN layer. Returns (x, aux, new_k, new_v)."""
+    delta, nk, nv = _attn_sublayer(
+        p, x, cfg, positions=positions, mode=mode, is_global=is_global, ck=ck, cv=cv, length=length
+    )
+    x = x + delta
+    ff, aux = _ff_sublayer(p, x, cfg)
+    return x + ff, aux, nk, nv
+
+
+def _ssm_layer(lp, x, cfg, *, return_state):
+    """One Mamba2 layer's residual branch (and its final state)."""
+    return ssm_lib.ssm_forward(
+        {k: v for k, v in lp.items() if k != "ln1"}, rms_norm(x, lp["ln1"]), cfg, return_state=return_state
+    )
 
 
 # --------------------------------------------------------------------------
@@ -144,18 +198,16 @@ def _fwd_attn_stack(params, x, cfg, *, positions, mode, cache: Cache | None):
     flags = layer_flags(cfg, x.device)
     aux = _zero(x)
     ks, vs = [], []
+    layer = _remat(_attn_ffn_layer, cfg, mode)
     for i in range(cfg.num_layers):
         ck = cv = None
         if cache is not None:
             ck, cv = cache.k[i], cache.v[i]
-        delta, nk, nv = _attn_sublayer(
+        x, aux_l, nk, nv = layer(
             _layer(params["layers"], i), x, cfg, positions=positions, mode=mode,
             is_global=None if flags is None else flags[i],
             ck=ck, cv=cv, length=None if cache is None else cache.length,
         )
-        x = x + delta
-        ff, aux_l = _ff_sublayer(_layer(params["layers"], i), x, cfg)
-        x = x + ff
         aux = aux + aux_l
         if mode == "prefill":  # train mode keeps no K/V
             ks.append(nk)
@@ -183,12 +235,9 @@ def _fwd_ssm_stack(params, x, cfg, *, mode, cache: Cache | None):
         return x, _zero(x), cache.conv, cache.ssd
 
     convs, ssds = [], []
+    layer = _remat(_ssm_layer, cfg, mode)
     for i in range(n_l):
-        lp = _layer(params["layers"], i)
-        out = ssm_lib.ssm_forward(
-            {k: v for k, v in lp.items() if k != "ln1"}, rms_norm(x, lp["ln1"]), cfg,
-            return_state=(mode == "prefill"),
-        )
+        out = layer(_layer(params["layers"], i), x, cfg, return_state=(mode == "prefill"))
         if mode == "prefill":
             delta, st = out
             convs.append(st.conv)
@@ -209,6 +258,7 @@ def _fwd_hybrid(params, x, cfg, *, positions, mode, cache: Cache | None):
 
     new_convs, new_ssds, new_ks, new_vs = [], [], [], []
     aux = _zero(x)
+    block = _remat(_attn_ffn_layer, cfg, mode)  # the shared block, checkpointed at each use
     for s in range(n_seg):
         lp_seg = _layer(params["layers"], s)
         sub_cache = None
@@ -222,14 +272,10 @@ def _fwd_hybrid(params, x, cfg, *, positions, mode, cache: Cache | None):
         cv = cache.v[s] if (cache is not None and cache.v is not None) else None
 
         x, _, conv_s, ssd_s = _fwd_ssm_stack({"layers": lp_seg}, x, cfg, mode=mode, cache=sub_cache)
-
-        delta, nk, nv = _attn_sublayer(
+        x, aux_l, nk, nv = block(
             sp, x, cfg, positions=positions, mode=mode,
             ck=ck, cv=cv, length=None if cache is None else cache.length,
         )
-        x = x + delta
-        ff, aux_l = _ff_sublayer(sp, x, cfg)
-        x = x + ff
         aux = aux + aux_l
         if mode == "prefill":
             new_convs.append(conv_s)

@@ -7,7 +7,11 @@ and ``.npy`` files byte for byte, and each package restores the other's
 checkpoint. ``restore`` puts the leaves back as tensors on ``device``, or
 where ``shardings=`` places them: a mesh structure saved from an 8-shard
 mesh restores onto a (2, 4) mesh with the same global leaves (the elastic
-restore). Tolerance: exact, dtypes included.
+restore). A bfloat16 leaf goes to disk as the reference writes it, and the
+reference's comes back as bfloat16; a training runner's checkpoint (params
+and ``AdamWState``) written by either package resumes in the other.
+Tolerance: exact, dtypes included; the resumed losses within 1e-5 (float32
+in two packages, ``tests/test_torch_train_parity.py``).
 """
 
 import json
@@ -16,6 +20,7 @@ from collections import namedtuple
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +29,7 @@ from repro import checkpoint as jax_ckpt
 from repro_torch import checkpoint
 from repro_torch.core import distributed
 from repro_torch.launch.mesh import make_mesh
+from test_torch_train_parity import one_thread  # noqa: F401 (an autouse fixture)
 from torch_parity_util import assert_same_structure, leaves, to_np
 
 Pair = namedtuple("Pair", "w b")
@@ -184,3 +190,104 @@ def _host_like(tree):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*map(_host_like, tree))
     return np.asarray(tree)
+
+
+# --- bfloat16 leaves and the training runner's checkpoints ----------------------
+
+
+def _bf16_values():
+    """float32 values exact in bfloat16, signed zeros and infinities too."""
+    v = np.array([[1.0, -2.5, 3.0, 0.0], [-0.0, 1e30, -np.inf, 2.0 ** -120]], np.float32)
+    return v.view(np.uint32) & np.uint32(0xFFFF0000)
+
+
+def test_bf16_leaf_is_written_as_the_reference_writes_it(tmp_path):
+    """A bfloat16 tensor saved by the port: the reference's ``.npy`` (its
+    ``ml_dtypes`` words under ``'<V2'``) and manifest, byte for byte; the
+    port restores it as bfloat16 with the same bits."""
+    bits = _bf16_values()
+    host = {"w": jnp.asarray(bits.view(np.float32), jnp.bfloat16), "n": np.arange(3, dtype=np.int32)}
+    tree = {"w": torch.from_numpy(bits.view(np.float32)).bfloat16(), "n": torch.arange(3, dtype=torch.int32)}
+    jax_ckpt.save(str(tmp_path / "ref"), 2, host)
+    checkpoint.save(str(tmp_path / "port"), 2, tree)
+    a, b = tmp_path / "ref" / "step_00000002", tmp_path / "port" / "step_00000002"
+    for name in sorted(p.name for p in a.iterdir()):
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+    manifest = json.loads((b / "manifest.json").read_text())
+    assert [e["dtype"] for e in manifest["leaves"]] == ["int32", "bfloat16"]
+    back = checkpoint.restore(str(tmp_path / "port"), 2, tree, device="cpu")
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), tree["w"].view(torch.int16))
+
+
+def test_reference_bf16_checkpoint_restores_as_bf16(tmp_path):
+    bits = _bf16_values()
+    jax_ckpt.save(str(tmp_path), 1, {"params": {"w": jnp.asarray(bits.view(np.float32), jnp.bfloat16)}})
+    like = {"params": {"w": torch.zeros(bits.shape, dtype=torch.bfloat16)}}
+    got = checkpoint.restore(str(tmp_path), 1, like, device="cpu")["params"]["w"]
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy().view(np.uint16), (bits >> 16).astype(np.uint16))
+
+
+@pytest.fixture(scope="module")
+def qwen2_steps():
+    """Reduced qwen2's train step in each package (B 2, L 16) and the
+    reference's initial state, built once: the reference's compile is the
+    cost."""
+    from repro.launch.mesh import make_mesh as rmesh
+    from repro.launch.mesh import set_mesh
+    from repro.optim import adamw as radamw
+    from repro.train.steps import make_train_step as rmake_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from test_torch_train_parity import reference_start
+
+    rcfg, pcfg, params, opt = reference_start("qwen2-1.5b")
+    mesh = rmesh((1, 1), ("data", "model"))
+    rstep, _ = rmake_train_step(rcfg, mesh, lr_fn=radamw.cosine_schedule(1e-3, 1, 4), batch=2, seq_len=16)
+
+    def in_mesh(*args):  # the reference's in-model sharding constraints need its mesh
+        with set_mesh(mesh):
+            return rstep(*args)
+
+    pstep, _ = make_train_step(
+        pcfg, make_mesh((1, 1), ("data", "model"), devices="cpu"),
+        lr_fn=adamw.cosine_schedule(1e-3, 1, 4), batch=2, seq_len=16,
+    )
+    return {"reference": (in_mesh, rcfg), "port": (pstep, pcfg)}, params, opt
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_runner_checkpoint_resumes_in_the_other_package(writer, qwen2_steps, tmp_path):
+    """Two steps of reduced qwen2 with a checkpoint of params and
+    ``AdamWState`` at step 2, written by one package's runner; the other
+    package's runner resumes it for steps 3 and 4, and its losses equal the
+    writer's own resumed run within 1e-5."""
+    import shutil
+
+    from repro.train import runner as rrunner
+    from repro_torch.train import runner as prunner
+    from test_torch_train_parity import REL_LOSS, port_start
+
+    steps, params, opt = qwen2_steps
+    pp, po = port_start(params, opt)
+    start = {"reference": (params, opt), "port": (pp, po)}
+
+    def run(package, root, total):
+        step_fn, cfg = steps[package]
+        p, o = start[package]
+        if package == "port":
+            rc = prunner.RunnerConfig(total_steps=total, ckpt_dir=str(root), ckpt_every=2, seed=3)
+            return prunner.run_training(step_fn, p, o, cfg, 2, 16, rc, device="cpu")
+        rc = rrunner.RunnerConfig(total_steps=total, ckpt_dir=str(root), ckpt_every=2, seed=3)
+        return rrunner.run_training(step_fn, p, o, cfg, 2, 16, rc)
+
+    reader = "reference" if writer == "port" else "port"
+    first = run(writer, tmp_path / "a", 2)
+    assert first.steps_done == 2 and checkpoint.latest_step(str(tmp_path / "a")) == 2
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    own = run(writer, tmp_path / "a", 4)
+    other = run(reader, tmp_path / "b", 4)
+    assert own.steps_done == other.steps_done == 2
+    for a, b in zip(other.losses, own.losses):
+        assert abs(a - b) <= REL_LOSS * abs(b), (other.losses, own.losses)

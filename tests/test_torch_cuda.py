@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import update
+from repro_torch._tree import leaves, tree_map
 from repro_torch.core import block_rmq, hybrid, lane_rmq, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
@@ -554,3 +555,78 @@ def test_lm_on_card_matches_cpu(cuda, arch):
     for a, b in zip(*runs):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of reduced qwen2 (depth 1, float32, remat on) on the
+    card and on the CPU from the same state: the loss within 1e-5, every
+    first moment (0.1 x the clip scale x the gradient) within 1e-4 relative
+    (max abs difference over the CPU's max abs value), and every updated
+    master leaf within 1e-4 on the elements whose gradient is zero or at
+    least 1% of its leaf's largest. AdamW's first step is about
+    ``lr * g / |g|``, so an element whose gradient is near 0 carries the two
+    devices' rounding into its sign: those elements must lie within 2 lr
+    (the rule of tests/test_torch_train_parity.py)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    lr = 1e-3
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-1.5b")), num_layers=1, remat=True)
+    params = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    outs = []
+    for dev in ("cpu", cuda):
+        mesh = make_mesh((1, 1), ("data", "model"), devices=dev)
+        step, _ = make_train_step(cfg, mesh, lr_fn=lambda s: torch.tensor(lr), batch=2, seq_len=64)
+        p = tree_map(lambda t: t.to(dev), params)
+        batch = pipeline.synthetic_batch(cfg, 2, 64, seed=0, step=0, device=dev)
+        _, opt, m = step(p, adamw.init(p), batch)
+        outs.append((float(m["loss"]), *(tree_map(lambda t: t.cpu(), t) for t in (opt.mu, opt.master))))
+    (l_cpu, mu_cpu, w_cpu), (l_gpu, mu_gpu, w_gpu) = outs
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for m_c, m_g, w_c, w_g in zip(*(leaves(t) for t in (mu_cpu, mu_gpu, w_cpu, w_gpu))):
+        scale = float(m_c.abs().max())
+        assert float((m_g - m_c).abs().max()) <= 1e-4 * scale
+        ratio = m_c.abs() / max(scale, 1e-30)
+        fine = (ratio >= 1e-2) | (ratio == 0)
+        diff = (w_g - w_c).abs()
+        assert float(diff[fine].max()) <= 1e-4 * float(w_c.abs().max())
+        assert float(diff.max()) <= 2 * lr
+
+
+def test_run_training_on_card_survives_a_fault(cuda, tmp_path):
+    """The runner on the card: a fault at step 3 restores the step-2
+    checkpoint and replays; 6 steps done with one restart, and the final
+    state equals an uninterrupted run's within 1e-6 relative (a backward
+    pass on the card may sum scattered gradients in another order)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import runner
+    from repro_torch.train.steps import make_train_step
+
+    cfg = reduce_for_smoke(get_config("granite-3-8b"))
+    mesh = make_mesh((1, 1), ("data", "model"), devices=cuda)
+    step, _ = make_train_step(cfg, mesh, lr_fn=adamw.cosine_schedule(1e-3, 1, 6), batch=2, seq_len=32)
+    params = model.init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    opt = adamw.init(params)
+    boom = {3: True}
+
+    def hook(s):
+        if boom.pop(s, None):
+            raise RuntimeError("injected fault")
+
+    rc = runner.RunnerConfig(total_steps=6, ckpt_dir=str(tmp_path / "a"), ckpt_every=2, seed=1)
+    rep = runner.run_training(step, params, opt, cfg, 2, 32, rc, fault_hook=hook)
+    assert rep.restarts == 1 and rep.steps_done == 7  # steps 3.. replayed from the step-2 checkpoint
+    clean = runner.run_training(
+        step, params, opt, cfg, 2, 32, runner.RunnerConfig(total_steps=6, ckpt_dir=str(tmp_path / "b"), ckpt_every=2, seed=1)
+    )
+    for a, b in zip(leaves(rep.opt_state.master), leaves(clean.opt_state.master)):
+        assert a.device.type == "cuda" and float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())

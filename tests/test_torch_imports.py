@@ -65,6 +65,13 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.models.model",
         "repro_torch.data.packing",
         "repro_torch.launch.specs",
+        "repro_torch._tree",
+        "repro_torch.optim.adamw",
+        "repro_torch.optim.compress",
+        "repro_torch.launch.sharding",
+        "repro_torch.launch.train",
+        "repro_torch.train.steps",
+        "repro_torch.train.runner",
     ):
         assert mod in res["imported"]
 

@@ -20,6 +20,7 @@ cases bit-equal.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -353,9 +354,11 @@ def test_decode_attention_bf16_matches_reference(window, flag):
 
 
 def test_sharding_arguments_are_not_taken():
-    """The reference's mesh arguments are not ported: passing one is a
-    TypeError, not a silent no-op; an MoE config with a mesh injected (the
-    reference then routes one group per data-parallel shard) raises."""
+    """The reference's placement arguments are not ported: passing one is a
+    TypeError, not a silent no-op. An MoE config with a mesh injected routes
+    one group per data-parallel shard, as the reference does (the groups'
+    arithmetic is held to the reference in test_torch_train.py); at the
+    reduced config's drop-free capacity the groups change no token's route."""
     q, k, v = map(_t, _qkv(3, 1, 8, 2, 2, 8))
     with pytest.raises(TypeError):
         attention.flash_attention(q, k, v, attn_shard="seq")
@@ -368,9 +371,12 @@ def test_sharding_arguments_are_not_taken():
     )
     params = model.init_params(cfg, generator=_gen(), device="cpu")
     tokens = _tokens(cfg, 2, 8)
-    assert torch.isfinite(model.prefill(params, tokens, cfg)[0]).all()
-    with pytest.raises(NotImplementedError, match="mesh_axis_sizes"):
-        model.prefill(params, tokens, meshed)
+    plain = model.prefill(params, tokens, cfg)[0]
+    assert torch.isfinite(plain).all()
+    with mock.patch.object(moe, "moe_ffn", wraps=moe.moe_ffn) as spy:
+        grouped = model.prefill(params, tokens, meshed)[0]
+    assert {c.kwargs["num_groups"] for c in spy.call_args_list} == {2}
+    assert _rel(grouped, plain) < REL
 
 
 def _reference_routing(x, router, top_k, cap, g):
