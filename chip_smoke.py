@@ -196,7 +196,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    repro_torch.launch.train --arch granite-3-8b --smoke --steps 8`` on the
    card; (e) reduced grok-1-314b on a (2, 4) mesh of the card (two MoE
    groups): 3 steps, the losses equal to the same on the CPU within 1e-5;
-10. one JSON ``kernels`` line, the wall time, the card line again, and the
+10. the dry run (``dryrun_phase``; ``launch/dryrun.py`` on the ``meta``
+   device, in worker processes that never initialise CUDA): (a)
+   ``run_cell`` on the 16 x 16 mesh for qwen2-1.5b, zamba2-2.7b and
+   grok-1-314b at every shape ``configs.cells()`` gives them, and one
+   ``--compile-only`` cell on the 2 x 16 x 16 mesh, each record's terms,
+   bottleneck and useful ratio printed (computed for 256 and 512 H100s,
+   not measured); (b) the roofline floor of phase 9 (a)'s step: qwen2-1.5b
+   whole at 4 x 1024 on a one-position meta mesh, its dtypes and remat:
+   the measured step must be at least ``max(t_compute, t_memory)``, and
+   arg + temp bytes are printed beside the measured peak; (c) the phase
+   within ``DRYRUN_SECONDS``;
+11. one JSON ``kernels`` line, the wall time, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
@@ -225,6 +236,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.roofline import HW  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
@@ -260,7 +274,8 @@ LM_CPU_REL = 1e-4
 # the largest.
 LM_BF16_REL = 0.1
 LM_PACK_DOCS, LM_PACK_SEQ = 20000, 2048
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (data sheet)
+# H100 SXM dense bf16 peak (data sheet): the dry run's roofline constant
+BF16_FLOPS = HW["peak_flops"]
 # Phase 9, LM training: the whole model's steps (bf16 params, float32 master)
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
@@ -276,6 +291,11 @@ TRAIN_CONDITIONED = 1e-2  # (b): a gradient at least this fraction of its leaf's
 TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 2e-4, 5e-2
 TRAIN_RUNNER_DEPTH, TRAIN_FAULT_STEP = 2, 5  # (c): the whole model's checkpoints would be 25 GB each
 TRAIN_MESH_REL = 1e-5  # (e): the losses, float32
+# Phase 10, the dry run: its archs (every shape cells() gives each), the
+# 2 x 16 x 16 mesh's compile-only cell, and the phase's time limit
+DRYRUN_ARCHS = ("qwen2-1.5b", "zamba2-2.7b", "grok-1-314b")
+DRYRUN_MULTI = ("qwen2-1.5b", "train_4k")
+DRYRUN_SECONDS = 120.0
 
 
 def _disk_free(path) -> int:
@@ -1399,7 +1419,7 @@ def _held_close(name, got, want, lr_sum=0.0, ratios=None) -> float:
     return float(diff.max()) / scale if diff.numel() else 0.0
 
 
-def train_phase(torch, np, dev, drive, card, root) -> None:
+def train_phase(torch, np, dev, drive, card, root) -> dict:
     """Phase 9: LM training on the card (torch ops: no kernel of ``csrc/``
     runs, as no Pallas kernel runs in the reference's training). (a)
     qwen2-1.5b whole, bf16 params with the float32 master: 8 steps of
@@ -1412,7 +1432,8 @@ def train_phase(torch, np, dev, drive, card, root) -> None:
     steps, a checkpoint every 4, a fault at step 5: one restart, the last
     checkpoint equal to the live state bit for bit. (d) the training CLI
     for granite-3-8b --smoke on the card. (e) reduced grok on a (2, 4) mesh
-    of the card (2 MoE groups): 3 steps equal to the same on the CPU."""
+    of the card (2 MoE groups): 3 steps equal to the same on the CPU.
+    Returns (a)'s ``step_ms`` and ``peak`` bytes."""
     import dataclasses
     from unittest import mock
 
@@ -1438,6 +1459,8 @@ def train_phase(torch, np, dev, drive, card, root) -> None:
 
     def to(tree, d):
         return tree_map(lambda t: t.to(d), tree)
+
+    measured = {}  # (a)'s step ms and peak bytes, for phase 10's roofline floor
 
     def whole():  # (a)
         cfg = configs.get_config(TRAIN_ARCH)
@@ -1481,6 +1504,7 @@ def train_phase(torch, np, dev, drive, card, root) -> None:
               f"TFLOP/s dense bf16, the H100 SXM data sheet); the AdamW update alone {upd_ms:.3f} ms against a "
               f"byte bound of {upd_bound:.3f} ms ({upd_bytes} B at 3.35 TB/s); max_memory_allocated {peak} B "
               f"({card})")
+        measured.update(step_ms=step_ms, peak=peak)
         print(f"[trace] {TRAIN_ARCH} train step under torch.profiler: {ops} device ops, device busy {busy:.3f} ms "
               f"of {wall:.3f} ms (idle share {1 - busy / wall:.4f}); busiest: "
               + "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:60]}" for e in top)
@@ -1636,6 +1660,92 @@ def train_phase(torch, np, dev, drive, card, root) -> None:
         back.cuda.matmul.allow_tf32, back.cudnn.allow_tf32 = saved
         shutil.rmtree(ckpt_root, ignore_errors=True)
     print(f"[wall] phase 9 (LM training) took {time.perf_counter() - t_phase:.1f} s")
+    return measured
+
+
+# --- phase 10: the dry run ----------------------------------------------------
+
+
+def _dryrun_job(job):
+    """One job of phase 10, in a worker process: ``("cell", arch, shape,
+    mesh, compile_only)`` runs ``dryrun.run_cell``; ``("floor",)`` counts
+    phase 9 (a)'s step on a one-position meta mesh. Returns the job's
+    printed lines, its result and whether CUDA was initialised."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if job[0] == "cell":
+            _, arch, shape, mesh, compile_only = job
+            res = dryrun.run_cell(arch, shape, mesh, None, compile_only=compile_only)
+        else:
+            cfg = configs.get_config(TRAIN_ARCH)
+            shape = configs.ShapeConfig("phase9", "train", TRAIN_SEQ, TRAIN_BATCH)
+            res = dryrun._measure(cfg, shape, make_mesh((1, 1), ("data", "model"), devices="meta"))
+    return buf.getvalue(), res, torch.cuda.is_initialized(), time.perf_counter() - t0
+
+
+def dryrun_phase(card, step_ms: float, peak: int) -> None:
+    """Phase 10: the dry run on the ``meta`` device, its jobs in worker
+    processes (spawned, so none inherits this process's CUDA context; each
+    must end with CUDA uninitialised). (a) ``run_cell`` on the 16 x 16 mesh
+    for ``DRYRUN_ARCHS`` at every shape of ``configs.cells()``, and
+    ``DRYRUN_MULTI`` compile-only on the 2 x 16 x 16 mesh: every cell must
+    pass with finite, positive terms. (b) the roofline floor of phase 9
+    (a)'s step: its measured ms must be at least ``max(t_compute,
+    t_memory)`` of the same step counted on meta; arg + temp bytes are
+    printed beside its measured peak. (c) within ``DRYRUN_SECONDS``."""
+    import math
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    jobs = [("cell", a, s, "single", False) for a, s, _ in configs.cells() if a in DRYRUN_ARCHS]
+    jobs.append(("cell", *DRYRUN_MULTI, "multi", True))
+    jobs.append(("floor",))
+    workers = max(1, min(len(jobs), os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_dryrun_job, jobs))
+    for job, (lines, rec, cuda_init, seconds) in zip(jobs, results):
+        for line in lines.splitlines():
+            print(f"[dryrun] {line}")
+        _require(not cuda_init, f"the dry run job {job} initialised CUDA")
+        if job[0] != "cell":
+            continue
+        _, arch, shape, mesh, compile_only = job
+        _require(rec["arg_bytes_per_dev"] > 0 and rec["temp_bytes_per_dev"] > 0,
+                 f"{arch} x {shape} x {mesh}: no bytes per device")
+        if compile_only:
+            print(f"[dryrun] {arch} x {shape} x {mesh} (compile-only): full-depth walk {rec['compile_s']} s, "
+                  f"arg {rec['arg_bytes_per_dev']} B, temp {rec['temp_bytes_per_dev']:.0f} B per device, "
+                  f"collectives {sorted(rec['coll_schedule_scan_artifact'])} (job {seconds:.1f} s)")
+            continue
+        terms = (rec["t_compute"], rec["t_memory"], rec["t_collective"])
+        _require(all(math.isfinite(t) and t > 0 for t in terms), f"{arch} x {shape}: terms {terms}")
+        print(f"[dryrun] {arch} x {shape} x {mesh} ({rec['chips']} H100s, computed, not measured): t_compute "
+              f"{terms[0] * 1e3:.4f} ms, t_memory {terms[1] * 1e3:.4f} ms, t_collective {terms[2] * 1e3:.4f} ms, "
+              f"bottleneck {rec['bottleneck']}, useful_ratio {rec['useful_ratio']:.4f} (job {seconds:.1f} s)")
+    floor = results[-1][1]
+    t_c = floor["flops"] / HW["peak_flops"] * 1e3
+    t_m = floor["bytes"] / HW["hbm_bw"] * 1e3
+    bound = max(t_c, t_m)
+    held = floor["arg"] + floor["temp"]
+    print(f"[dryrun] roofline floor of phase 9 (a)'s step ({TRAIN_ARCH} whole, {TRAIN_BATCH}x{TRAIN_SEQ}, bf16 "
+          f"params + float32 master, remat as configured, one device): {floor['flops']:.0f} flops -> t_compute "
+          f"{t_c:.3f} ms, {floor['bytes']:.0f} B unfused -> t_memory {t_m:.3f} ms; measured step {step_ms:.3f} ms "
+          f"= {step_ms / bound:.4f} x the floor; arg + temp {held:.0f} B beside max_memory_allocated {peak} B "
+          f"(ratio {peak / held:.4f}) ({card})")
+    _require(step_ms >= bound, f"the measured step {step_ms} ms is below its roofline floor {bound} ms")
+    seconds = time.perf_counter() - t_phase
+    print(f"[wall] phase 10 (the dry run) took {seconds:.1f} s ({len(jobs)} jobs on {workers} processes)")
+    _require(seconds < DRYRUN_SECONDS, f"the dry run took {seconds:.1f} s, over {DRYRUN_SECONDS} s")
 
 
 def main() -> int:
@@ -2678,9 +2788,12 @@ def _main() -> int:
     lm_phase(torch, np, dev, drive, card)
 
     # --- phase 9: LM training ------------------------------------------------
-    train_phase(torch, np, dev, drive, card, root)
+    measured = train_phase(torch, np, dev, drive, card, root)
 
-    # --- phase 10: the kernels line and the result --------------------------
+    # --- phase 10: the dry run ------------------------------------------------
+    drive("the dry run", lambda: dryrun_phase(card, measured["step_ms"], measured["peak"]), none=True)
+
+    # --- phase 11: the kernels line and the result --------------------------
     fq = "src/repro/kernels/fused_query.py"
     source = {
         "block_min": ("src/repro_torch/csrc/block_min.cu", "src/repro/kernels/block_min.py:47"),

@@ -1,10 +1,12 @@
-"""repro_torch.launch — mesh, sharding rules, specs, serve and train CLIs.
+"""repro_torch.launch — mesh, sharding rules, specs, roofline, dry run,
+serve and train CLIs.
 
-``python -m repro_torch.launch.serve`` serves RMQ batches and
-``python -m repro_torch.launch.train`` trains an LM; neither is imported
-here.
+``python -m repro_torch.launch.serve`` serves RMQ batches,
+``python -m repro_torch.launch.train`` trains an LM and
+``python -m repro_torch.launch.dryrun`` plans every (arch × shape) cell on
+the ``meta`` device; none of the three is imported here.
 """
 
-from . import mesh, sharding, specs
+from . import mesh, roofline, sharding, specs
 
-__all__ = ["mesh", "sharding", "specs"]
+__all__ = ["mesh", "roofline", "sharding", "specs"]

@@ -42,6 +42,7 @@ __all__ = [
     "named",
     "opt_state_specs",
     "mesh_device",
+    "step_device",
 ]
 
 
@@ -233,6 +234,17 @@ def mesh_device(mesh) -> torch.device:
     if devs[0].type == "meta":
         raise ValueError("a mesh on the meta device plans shapes; it holds no memory to compute on")
     return devs[0]
+
+
+def step_device(mesh) -> torch.device:
+    """The device a step built for ``mesh`` computes on: ``mesh_device``'s,
+    or ``meta`` for a mesh whose every position is on ``meta``. There a step
+    walks its shapes and allocates nothing (the dry run,
+    ``launch/dryrun.py``); ``named`` still refuses such a mesh."""
+    devs = mesh.physical_devices
+    if len(devs) == 1 and devs[0].type == "meta":
+        return devs[0]
+    return mesh_device(mesh)
 
 
 def named(mesh, spec_tree: Any) -> Any:

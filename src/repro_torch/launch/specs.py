@@ -8,10 +8,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs import SHAPES, ShapeConfig, get_config
 from repro_torch.models import model as model_lib
 
-__all__ = ["input_specs", "input_specs_for", "model_flops"]
+__all__ = ["input_specs", "input_specs_for", "model_flops", "shape_config"]
 
 
 def _spec(shape, dtype) -> torch.Tensor:
@@ -24,9 +24,16 @@ def input_specs(arch: str, shape_name: str) -> dict:
     return input_specs_for(get_config(arch), shape_name)
 
 
-def input_specs_for(cfg, shape_name: str) -> dict:
-    """Same, for an arbitrary (possibly variant) ModelConfig."""
-    shape = SHAPES[shape_name]
+def shape_config(shape_name) -> ShapeConfig:
+    """The ``ShapeConfig`` a name of ``SHAPES`` names; a ``ShapeConfig`` of
+    one's own stands for itself."""
+    return SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+
+
+def input_specs_for(cfg, shape_name) -> dict:
+    """Same, for an arbitrary (possibly variant) ModelConfig; ``shape_name``
+    may also be a ``ShapeConfig`` of its own."""
+    shape = shape_config(shape_name)
     b, s = shape.global_batch, shape.seq_len
     params = model_lib.abstract_params(cfg)
 

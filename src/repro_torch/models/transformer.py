@@ -302,7 +302,13 @@ _DECODED_TO = "_repro_decoded_to"  # the length a decode step left a cache tenso
 def _claim(cache: Cache) -> None:
     """Check that ``cache`` may take a decode step, then mark its tensors as
     advanced to ``length + 1``: raises at capacity, and for a cache whose
-    tensors a later step has already moved on."""
+    tensors a later step has already moved on. A cache on ``meta`` (the
+    dry run's) keeps its length on the host, a Python int."""
+    if isinstance(cache.length, torch.Tensor) and cache.length.device.type == "meta":
+        raise ValueError(
+            "a cache on meta takes a decode step with its length on the host: "
+            "cache._replace(length=<int below the capacity>)"
+        )
     length = int(cache.length)
     if cache.k is not None and length >= cache.k.shape[2]:
         raise ValueError(

@@ -92,7 +92,7 @@ def make_train_step(
     batch_data)`` returns ``(params, opt_state, {"loss", "grad_norm",
     "lr"})``, every tensor on the mesh's device."""
     cfg = _with_mesh_axes(cfg, mesh, batch)
-    dev = shard_rules.mesh_device(mesh)
+    dev = shard_rules.step_device(mesh)
     pspecs = shard_rules.param_specs(cfg, mesh)
     ospecs = shard_rules.opt_state_specs(pspecs)
     bspecs = shard_rules.batch_specs(cfg, mesh, batch, seq_len, "train")
@@ -133,7 +133,7 @@ def make_prefill_step(cfg, mesh, *, batch: int, seq_len: int):
     """Returns (step, specs): ``step(params, inputs)`` is ``model.prefill``
     on the mesh's device with the mesh's axes in the config."""
     cfg = _with_mesh_axes(cfg, mesh, batch)
-    dev = shard_rules.mesh_device(mesh)
+    dev = shard_rules.step_device(mesh)
     pspecs = shard_rules.param_specs(cfg, mesh)
     ispec = shard_rules.batch_specs(cfg, mesh, batch, seq_len, "prefill")
     cspecs = shard_rules.cache_spec(cfg, mesh, batch, seq_len + cfg.cache_pad)
@@ -148,7 +148,7 @@ def make_serve_step(cfg, mesh, *, batch: int, capacity: int):
     """One-token decode step against a capacity-sized cache (used up by the
     call, as ``model.decode_step``'s is)."""
     cfg = _with_mesh_axes(cfg, mesh, batch)
-    dev = shard_rules.mesh_device(mesh)
+    dev = shard_rules.step_device(mesh)
     pspecs = shard_rules.param_specs(cfg, mesh)
     tspec = shard_rules.batch_specs(cfg, mesh, batch, 1, "decode")
     cspecs = shard_rules.cache_spec(cfg, mesh, batch, capacity)

@@ -72,6 +72,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.launch.train",
         "repro_torch.train.steps",
         "repro_torch.train.runner",
+        "repro_torch.launch.roofline",
+        "repro_torch.launch.dryrun",
     ):
         assert mod in res["imported"]
 
