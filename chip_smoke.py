@@ -208,7 +208,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    arg + temp bytes are printed beside the measured peak; (c) the phase
    within ``DRYRUN_SECONDS``;
 11. one JSON ``kernels`` line, the wall time, the card line again, and the
-   last line ``{"ok": true, "device": {...}}``.
+   last line ``{"ok": true, "device": {...}}``;
+12. LM training on a mesh of ranks (``ranks_phase``; it runs after phase
+   10, before phase 11's closing lines): ``torch.cuda.device_count()``
+   ranks (one on a one-card machine), spawned with NCCL, build the
+   ``(1, n)`` ``("data", "model")`` mesh of ranks and train qwen2-1.5b
+   whole (bf16 params, float32 master) through ``make_train_step`` on
+   DTensor leaves: ``RANKS_STEPS`` steps of phase 9 (a)'s batch and
+   schedule from its seed-0 params. Each loss must equal phase 9 (a)'s at
+   that step within ``RANKS_LOSS_REL``; printed: step ms (CUDA events),
+   the losses, ``max_memory_allocated`` per rank beside phase 9 (a)'s, and
+   the ranks and devices.
 
 Times are medians of CUDA-event timings (ms); kernel ms is the device time
 ``torch.profiler`` reports, warm (``ms``: the same batch launched again and
@@ -291,6 +301,11 @@ TRAIN_CONDITIONED = 1e-2  # (b): a gradient at least this fraction of its leaf's
 TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 2e-4, 5e-2
 TRAIN_RUNNER_DEPTH, TRAIN_FAULT_STEP = 2, 5  # (c): the whole model's checkpoints would be 25 GB each
 TRAIN_MESH_REL = 1e-5  # (e): the losses, float32
+# Phase 12, training on a mesh of ranks: phase 9 (a)'s first steps again;
+# each loss held to phase 9's within the bf16 loss bound of
+# tests/test_torch_train_parity.py (BF16_LOSS)
+RANKS_STEPS = 3
+RANKS_LOSS_REL = 1e-4
 # Phase 10, the dry run: its archs (every shape cells() gives each), the
 # 2 x 16 x 16 mesh's compile-only cell, and the phase's time limit
 DRYRUN_ARCHS = ("qwen2-1.5b", "zamba2-2.7b", "grok-1-314b")
@@ -1504,7 +1519,7 @@ def train_phase(torch, np, dev, drive, card, root) -> dict:
               f"TFLOP/s dense bf16, the H100 SXM data sheet); the AdamW update alone {upd_ms:.3f} ms against a "
               f"byte bound of {upd_bound:.3f} ms ({upd_bytes} B at 3.35 TB/s); max_memory_allocated {peak} B "
               f"({card})")
-        measured.update(step_ms=step_ms, peak=peak)
+        measured.update(step_ms=step_ms, peak=peak, losses=losses)
         print(f"[trace] {TRAIN_ARCH} train step under torch.profiler: {ops} device ops, device busy {busy:.3f} ms "
               f"of {wall:.3f} ms (idle share {1 - busy / wall:.4f}); busiest: "
               + "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:60]}" for e in top)
@@ -1746,6 +1761,112 @@ def dryrun_phase(card, step_ms: float, peak: int) -> None:
     seconds = time.perf_counter() - t_phase
     print(f"[wall] phase 10 (the dry run) took {seconds:.1f} s ({len(jobs)} jobs on {workers} processes)")
     _require(seconds < DRYRUN_SECONDS, f"the dry run took {seconds:.1f} s, over {DRYRUN_SECONDS} s")
+
+
+# --- phase 12: LM training on a mesh of ranks -----------------------------------
+
+
+def _ranks_job(rank: int, out: str) -> None:
+    """Phase 12's work in one rank (a spawned process on ``cuda:<rank>``, in
+    the NCCL group): qwen2-1.5b whole on the ``(1, n)`` mesh of ranks, its
+    params placed from phase 9 (a)'s seed, ``RANKS_STEPS`` steps of phase 9
+    (a)'s batch; rank 0 writes every rank's numbers to ``out/ranks.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import _dtensor, configs
+    from repro_torch._tree import leaves
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    cfg = configs.get_config(TRAIN_ARCH)
+    mesh = make_mesh((1, world), ("data", "model"))
+    step, info = steps.make_train_step(
+        cfg, mesh, lr_fn=adamw.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS), batch=TRAIN_BATCH, seq_len=TRAIN_SEQ
+    )
+    t0 = time.perf_counter()
+    params = steps.place_state(mesh, info, model.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    params, opt = steps.place_state(mesh, info, params, adamw.init(params))
+    t_place = time.perf_counter() - t0
+    n_leaves = len(leaves((params, opt)))
+    sharded = sum(any(not p.is_replicate() for p in t.placements) for t in leaves((params, opt)))
+    batch = pipeline.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(RANKS_STEPS)]
+    losses, wall = [], []
+    for e0, e1 in events:
+        t0 = time.perf_counter()
+        e0.record()
+        params, opt, m = step(params, opt, batch)
+        e1.record()
+        losses.append(float(m["loss"]))
+        wall.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    mine = {
+        "rank": rank,
+        "device": str(dev),
+        "name": torch.cuda.get_device_name(dev),
+        "losses": losses,
+        "step_ms": [e0.elapsed_time(e1) for e0, e1 in events],
+        "wall_s": wall,
+        "peak": torch.cuda.max_memory_allocated(dev),
+        "dtensor_leaves": sum(_dtensor.is_dtensor(t) for t in leaves((params, opt))),
+        "leaves": n_leaves,
+        "sharded_leaves": sharded,
+        "place_s": t_place,
+        "mesh": repr(mesh),
+    }
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    if rank == 0:
+        (Path(out) / "ranks.json").write_text(json.dumps(every))
+
+
+def ranks_phase(torch, card, root, measured: dict) -> None:
+    """Phase 12 (module docstring): spawns the ranks (``launch.ranks``, a
+    ``file://`` rendezvous under ``build/``), then holds their losses to
+    phase 9 (a)'s. A rank that fails fails the phase."""
+    from repro_torch.launch import ranks
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    out = root / "build" / "ranks_phase"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    _free(torch)
+    try:
+        ranks.spawn(_ranks_job, n, str(out), device_type="cuda", init_method=f"file://{out / 'rendezvous'}")
+        every = json.loads((out / "ranks.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want = measured["losses"][:RANKS_STEPS]
+    first = every[0]
+    _require(len(every) == n and all(r["losses"] == first["losses"] for r in every),
+             f"the ranks saw different losses: {[r['losses'] for r in every]}")
+    _require(first["dtensor_leaves"] == first["leaves"], f"{first['leaves'] - first['dtensor_leaves']} leaves are not DTensors")
+    err = max(abs(a - w) / abs(w) for a, w in zip(first["losses"], want))
+    print(f"[ranks] {TRAIN_ARCH} whole on {first['mesh']}: {n} NCCL rank(s) on {[r['device'] for r in every]} "
+          f"({first['name']}); {first['leaves']} leaves, every one a DTensor, {first['sharded_leaves']} sharded (an "
+          f"axis of one rank shards nothing); "
+          f"placed in {first['place_s']:.2f} s; {RANKS_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} on phase 9 (a)'s "
+          f"batch and schedule ({card})")
+    print(f"[ranks] losses {first['losses']} against phase 9 (a)'s {want}: relative max error {err:.3e} "
+          f"(bound {RANKS_LOSS_REL}, the bf16 loss bound of tests/test_torch_train_parity.py)")
+    print(f"[ranks] step ms {[round(x, 3) for x in first['step_ms']]} (CUDA events; the first step includes "
+          f"DTensor's sharding propagation, host wall {[round(x, 3) for x in first['wall_s']]} s) against phase 9 "
+          f"(a)'s {measured['step_ms']:.3f} ms on one device ({card})")
+    print(f"[ranks] max_memory_allocated per rank {[r['peak'] for r in every]} B against phase 9 (a)'s "
+          f"{measured['peak']} B on one device ({card})")
+    _require(err <= RANKS_LOSS_REL, f"the ranks' losses {first['losses']} vs phase 9's {want}: {err} > {RANKS_LOSS_REL}")
+    print(f"[wall] phase 12 (training on a mesh of ranks) took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2792,6 +2913,9 @@ def _main() -> int:
 
     # --- phase 10: the dry run ------------------------------------------------
     drive("the dry run", lambda: dryrun_phase(card, measured["step_ms"], measured["peak"]), none=True)
+
+    # --- phase 12: LM training on a mesh of ranks (before phase 11's lines) ---
+    drive(f"train {TRAIN_ARCH} whole on a mesh of ranks", lambda: ranks_phase(torch, card, root, measured), none=True)
 
     # --- phase 11: the kernels line and the result --------------------------
     fq = "src/repro/kernels/fused_query.py"

@@ -22,6 +22,15 @@ mesh the restoring job has.
 
 Async: ``save(..., background=True)`` copies to host memory synchronously
 and writes to disk on a daemon thread.
+
+Ranks: a tree of DTensors (a run on a mesh of ranks, ``train.steps``) is
+saved by every rank together, and written as a one-device run writes it:
+each leaf whole (``full_tensor()``, a collective, leaf after leaf), the
+files written by rank 0 alone, and a barrier once the rename is done
+(``wait_pending`` for a background save), so no rank sees the step before
+it is complete. ``restore`` lays the leaves out again: as ``shardings``
+says (``launch.sharding.named``), or, without it, as the DTensor leaves of
+``like`` are.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch import _dtensor
 from repro_torch._device import resolve
 from repro_torch._tree import children as _children
 from repro_torch._tree import rebuild
@@ -51,6 +61,7 @@ __all__ = [
 ]
 
 _PENDING: list[threading.Thread] = []
+_RANK_SAVES: list[bool] = []  # a rank save awaits its barrier in ``wait_pending``
 
 _BF16 = "bfloat16"
 _BF16_DESCR = "<V2"  # what numpy writes for ml_dtypes' bfloat16
@@ -134,9 +145,16 @@ def save(
     but before the manifest/rename — the widest crash window.
     """
     flat = _flatten(tree)
+    ranks = any(_dtensor.is_dtensor(v) for _, v in flat)
+    writer = not ranks or _rank() == 0
     # Copy to host memory first (a device -> host copy for CUDA tensors) so
-    # async writers never race live buffers.
-    host = [(k, *_host(v)) for k, v in flat]
+    # async writers never race live buffers. On ranks each leaf is gathered
+    # whole by every rank, and kept by the writer alone.
+    host = []
+    for k, v in flat:
+        v = _dtensor.full(v)
+        if writer:
+            host.append((k, *_host(v)))
     manifest = {
         "step": int(step),
         "leaves": [
@@ -170,18 +188,35 @@ def save(
         os.replace(tmp, final)
         _fsync_dir(root)
 
-    if background:
+    if ranks:
+        _RANK_SAVES.append(True)
+    if writer and background:
         t = threading.Thread(target=write, daemon=True)
         t.start()
         _PENDING.append(t)
-    else:
+    elif writer:
         write()
+    if ranks and not background:
+        wait_pending()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
 
 
 def wait_pending():
+    """Wait for the background writes; after a save of DTensors every rank
+    calls it, and meets the others once rank 0's files are in place."""
     for t in _PENDING:
         t.join()
     _PENDING.clear()
+    if _RANK_SAVES:
+        _RANK_SAVES.clear()
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def latest_step(root: str) -> int | None:
@@ -250,10 +285,12 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
     on ``device`` (``None``: CUDA).
 
     ``shardings``: optional tree matching ``like`` whose leaves are each a
-    ``torch.device`` (the whole leaf there) or a
+    ``torch.device`` (the whole leaf there), a
     ``core.distributed.Placement`` (the leaf split into a ``ShardedLeaf``
-    over a mesh axis) — elastic restore onto whatever mesh the restarted
-    job has; ``device`` is then unused.
+    over a mesh axis) or a ``launch.sharding.Sharding`` (a DTensor on a
+    mesh of ranks) — elastic restore onto whatever mesh the restarted
+    job has; ``device`` is then unused. Without it, a DTensor leaf of
+    ``like`` comes back a DTensor laid out as it is.
     """
     path = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -261,8 +298,8 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
     by_key = {e["key"]: e for e in manifest["leaves"]}
     flat = _flatten(like)
     if shardings is None:
-        dev = resolve(device)
-        places = [lambda t: t.to(dev)] * len(flat)
+        dev = None if all(_dtensor.is_dtensor(ref) for _, ref in flat) else resolve(device)
+        places = [_like(ref, dev) for _, ref in flat]
     else:
         targets = _flatten(shardings)
         for k, ks in itertools.zip_longest([k for k, _ in flat], [k for k, _ in targets]):
@@ -277,6 +314,14 @@ def restore(root: str, step: int, like: Any, *, device=None, shardings: Any = No
             raise ValueError(f"checkpoint leaf {k} has shape {a.shape}, the tree wants {_shape(ref)}")
         leaves.append(place(_tensor(a, e["dtype"])))
     return _unflatten(like, iter(leaves))
+
+
+def _like(ref, dev) -> Callable:
+    """``host tensor -> leaf`` placed as ``ref``: a DTensor's layout, else
+    whole on ``dev``."""
+    if _dtensor.is_dtensor(ref):
+        return lambda t: _dtensor.place(t, ref.device_mesh, ref.placements)
+    return lambda t: t.to(dev)
 
 
 def _placer(target) -> Callable:

@@ -14,6 +14,16 @@ mesh spreads its positions round-robin over them. ``physical_devices``
 names the distinct devices, so a run on one card never reads as a run on
 eight. Port of ``repro/launch/mesh.py``; constructing a mesh allocates
 nothing.
+
+A mesh of ranks is the multi-controller form, as PyTorch runs several
+devices: one process per device, joined in a ``torch.distributed`` group
+(NCCL on the cards, gloo on the CPU). ``make_mesh`` called with no
+``devices`` in such a process gives one: its positions are the ranks'
+devices in rank order, ``device_mesh`` the matching
+``torch.distributed.DeviceMesh`` (the same shape and axis names) and
+``rank_device`` this process's own device. The LM steps compute on it with
+DTensor leaves (``launch.sharding``, ``train.steps``); the RMQ mesh engines
+stay single-controller and take meshes with ``devices`` given.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ class Mesh:
     order of first appearance.
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], *, device_mesh=None, rank_device=None):
         devs = np.empty(np.shape(devices), dtype=object)
         for pos, d in np.ndenumerate(np.asarray(devices, dtype=object)):
             d = torch.device(d)
@@ -59,6 +69,8 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, devs.shape))
         self.physical_devices: Tuple[torch.device, ...] = tuple(dict.fromkeys(devs.flat))
+        self.device_mesh = device_mesh  # a mesh of ranks only
+        self.rank_device = rank_device
 
     @property
     def size(self) -> int:
@@ -66,7 +78,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
-        return f"Mesh({axes}; {self.size} positions on {[str(d) for d in self.physical_devices]})"
+        what = "ranks" if self.device_mesh is not None else "positions"
+        return f"Mesh({axes}; {self.size} {what} on {[str(d) for d in self.physical_devices]})"
 
 
 def factor_2d(ndev: int):
@@ -102,14 +115,43 @@ def _devices_for(count: int, devices):
     return [pool[i % len(pool)] for i in range(count)]
 
 
+def _rank_mesh(shape: tuple, axes) -> Mesh:
+    """The mesh of the ranks of the default process group: rank ``r`` at
+    flat position ``r``, on its own device (the current CUDA device under
+    NCCL, else the CPU)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of ranks of shape {shape} needs {math.prod(shape)} ranks; the group has {world}")
+    if "nccl" in str(dist.get_backend()):
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device("cpu")
+    names = [None] * world
+    dist.all_gather_object(names, str(dev))
+    grid = np.empty(world, dtype=object)
+    grid[:] = [torch.device(n) for n in names]
+    device_mesh = init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axes))
+    return Mesh(grid.reshape(shape), axes, device_mesh=device_mesh, rank_device=dev)
+
+
 def make_mesh(shape, axes, devices=None) -> Mesh:
     """A mesh of ``shape`` over ``axes`` (e.g. ``(2, 4)``, ``("data", "model")``).
 
     ``devices=None`` spreads the positions round-robin over the visible
-    CUDA devices; ``devices="cpu"`` (or any one device) puts them all on
-    it; a sequence of devices is cycled in mesh order.
+    CUDA devices, or, in a process of an initialised ``torch.distributed``
+    group, gives the mesh of its ranks (module docstring; the shape must
+    hold every rank); ``devices="cpu"`` (or any one device) puts them all
+    on it; a sequence of devices is cycled in mesh order.
     """
     shape = tuple(int(s) for s in shape)
+    if devices is None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return _rank_mesh(shape, axes)
     count = math.prod(shape)
     grid = np.empty(count, dtype=object)
     grid[:] = _devices_for(count, devices)

@@ -16,9 +16,17 @@ Strategy (DESIGN.md §4):
   * every rule checks divisibility and falls back to replication, so any
     (arch × shape × mesh) cell has a spec.
 
-The step builders compute on one device (``train.steps``), so ``named``
-places every leaf on the mesh's one physical device; the specs say where
-each would live on a mesh of several.
+Where a spec puts a leaf depends on the mesh. On a mesh whose positions
+share one device (every position of a mesh on one card, or on the CPU)
+the step builders compute there (``train.steps``) and ``named`` places each
+leaf whole on that device; the specs only say where it would live. On a
+mesh of ranks (``launch.mesh``: one process per device) ``named`` gives
+each leaf a ``Sharding``: the ``DeviceMesh`` and one placement per mesh
+axis, ``Shard(d)`` where the spec names that axis for dimension ``d``,
+else ``Replicate()``; each leaf is then a DTensor holding only its rank's
+shard. A dimension that names several axes, such as ``("data", "model")``,
+splits over them major to minor, as the reference's ``PartitionSpec``
+does.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import _dtensor
 from repro_torch._tree import tree_map
 from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import Cache
@@ -40,8 +49,12 @@ __all__ = [
     "batch_specs",
     "cache_spec",
     "named",
+    "place",
+    "placements",
+    "Sharding",
     "opt_state_specs",
     "mesh_device",
+    "on_ranks",
     "step_device",
 ]
 
@@ -221,15 +234,24 @@ def opt_state_specs(pspecs) -> Any:
     return AdamWState(step=P(), master=pspecs, mu=pspecs, nu=pspecs)
 
 
+def on_ranks(mesh) -> bool:
+    """Whether ``mesh`` is a mesh of ranks (``launch.mesh``)."""
+    return getattr(mesh, "device_mesh", None) is not None
+
+
 def mesh_device(mesh) -> torch.device:
-    """The one physical device a mesh's positions share. A mesh over
-    several devices raises ``NotImplementedError`` (the step builders and
-    ``named`` run single-controller on one device); a ``meta`` mesh, a
-    shape to plan against, raises ``ValueError``."""
+    """The device a step built for ``mesh`` computes on: the one physical
+    device its positions share, or, on a mesh of ranks, this rank's own. A
+    mesh of one process over several devices raises
+    ``NotImplementedError`` (start one rank per device instead); a
+    ``meta`` mesh, a shape to plan against, raises ``ValueError``."""
+    if on_ranks(mesh):
+        return mesh.rank_device
     devs = mesh.physical_devices
     if len(devs) != 1:
         raise NotImplementedError(
-            f"the LM steps run on one device; this mesh spans {[str(d) for d in devs]}"
+            f"an LM step computes on one device per process; this mesh spans {[str(d) for d in devs]}: "
+            "start a rank per device (launch.ranks) and build the mesh there with make_mesh(shape, axes)"
         )
     if devs[0].type == "meta":
         raise ValueError("a mesh on the meta device plans shapes; it holds no memory to compute on")
@@ -242,14 +264,70 @@ def step_device(mesh) -> torch.device:
     walks its shapes and allocates nothing (the dry run,
     ``launch/dryrun.py``); ``named`` still refuses such a mesh."""
     devs = mesh.physical_devices
-    if len(devs) == 1 and devs[0].type == "meta":
+    if not on_ranks(mesh) and len(devs) == 1 and devs[0].type == "meta":
         return devs[0]
     return mesh_device(mesh)
 
 
+def placements(mesh, spec) -> tuple:
+    """One DTensor placement per mesh axis for ``spec``: ``Shard(d)`` on
+    each axis of more than one rank that the spec names for dimension
+    ``d``, else ``Replicate()`` (a shard over one rank is the whole
+    dimension, and DTensor cannot merge every dimension sharded so). Several
+    names on one dimension must come in mesh order (DTensor splits major to
+    minor in that order)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh.axis_names)
+    seen = set()
+    for d, entry in enumerate(spec):
+        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        if list(names) != sorted(names, key=mesh.axis_names.index):
+            raise ValueError(f"{spec}: the axes of dimension {d} must come in the mesh's order {mesh.axis_names}")
+        for name in names:
+            if name in seen:
+                raise ValueError(f"{spec} names axis {name!r} twice")
+            seen.add(name)
+            if mesh.shape[name] > 1:
+                out[mesh.axis_names.index(name)] = Shard(d)
+    return tuple(out)
+
+
+class Sharding:
+    """Where a leaf lives on a mesh of ranks (the reference's
+    ``NamedSharding``): ``device_mesh`` and ``placements``, one per mesh
+    axis. ``place(t)`` turns a whole tensor or numpy array into the DTensor
+    (each rank slices out its shard) and re-lays a DTensor out."""
+
+    __slots__ = ("device_mesh", "placements")
+
+    def __init__(self, device_mesh, placements):
+        self.device_mesh = device_mesh
+        self.placements = tuple(placements)
+
+    def place(self, t):
+        return _dtensor.place(t, self.device_mesh, self.placements)
+
+    def __repr__(self) -> str:
+        return f"Sharding({list(self.placements)})"
+
+
 def named(mesh, spec_tree: Any) -> Any:
-    """The placement of each spec's leaf: the ``torch.device`` it lives on
-    (the mesh's one physical device, ``mesh_device``). A tree of these is
-    what ``checkpoint.restore(shardings=)`` takes."""
+    """The placement of each spec's leaf: on a mesh of ranks a ``Sharding``,
+    else the ``torch.device`` it lives on whole (the mesh's one physical
+    device, ``mesh_device``). A tree of these is what
+    ``checkpoint.restore(shardings=)`` takes."""
+    if on_ranks(mesh):
+        return tree_map(lambda s: Sharding(mesh.device_mesh, placements(mesh, s)), spec_tree, is_leaf=_is_spec)
     dev = mesh_device(mesh)
     return tree_map(lambda s: dev, spec_tree, is_leaf=_is_spec)
+
+
+def place(mesh, spec_tree: Any, tree: Any) -> Any:
+    """``tree`` laid out as ``spec_tree`` says on ``mesh``: DTensors on a
+    mesh of ranks (from whole tensors or numpy arrays, alike on every rank,
+    or DTensors), else every leaf moved to the mesh's device."""
+    if not on_ranks(mesh):
+        dev = mesh_device(mesh)
+        return tree_map(lambda t: torch.as_tensor(t).to(dev), tree)
+    return tree_map(lambda s, t: s.place(t), named(mesh, spec_tree), tree, is_leaf=lambda x: isinstance(x, Sharding))

@@ -19,6 +19,12 @@ reference does. The softmax state is float32.
 
 Masks are built per chunk pair; ``is_global`` may be a bool tensor, so
 gemma3's local:global pattern rides a per-layer flag.
+
+On DTensors (a mesh of ranks) ``flash_attention`` runs on each rank's rows
+and heads as local tensors (``_flash_attention_ranks``), and
+``decode_attention`` on each rank's slots of a sequence-sharded cache, its
+softmax and weighted sum reduced over the ranks that share the rows
+(``_decode_attention_ranks``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch._dtensor import is_dtensor, shard_span
 
 from .layers import scalar
 
@@ -73,6 +81,11 @@ def flash_attention(
     q_offset: position of q[0] relative to k[0] (for prefill continuation).
     kv_valid: optional int — keys at positions >= kv_valid are masked.
     """
+    if is_dtensor(q):
+        return _flash_attention_ranks(
+            q, k, v, causal=causal, window=window, is_global=is_global, q_offset=q_offset,
+            kv_chunk=kv_chunk, kv_valid=kv_valid,
+        )
     b, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -115,6 +128,34 @@ def flash_attention(
     return out.transpose(1, 2).to(cdt)
 
 
+def _flash_attention_ranks(q, k, v, **kw):
+    """``flash_attention`` on DTensors: each rank attends for its own rows of
+    the batch and, over one mesh axis the batch does not take, its own
+    heads, on local tensors. Attention mixes neither rows nor heads, so this
+    is the one-device arithmetic per row and head; it moves K/V to every
+    rank of a head group (repeated to the query heads there) and keeps
+    DTensor from merging two sharded dimensions, which some torch releases
+    refuse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    h, rep = q.shape[2], q.shape[2] // k.shape[2]
+    rows = [isinstance(p, Shard) and p.dim == 0 for p in q.placements]
+    # the heads split over one mesh axis the rows leave free (the last whose
+    # size divides them), so no dimension is split over two axes
+    split = max((i for i, r in enumerate(rows) if not r and mesh.size(i) > 1 and h % mesh.size(i) == 0), default=None)
+    heads = [Shard(0) if r else Shard(2) if i == split else Replicate() for i, r in enumerate(rows)]
+    whole = [Shard(0) if r else Replicate() for r in rows]
+    grad = [Shard(0) if r else Partial() if i == split else Replicate() for i, r in enumerate(rows)]
+    ql = q.redistribute(mesh, heads).to_local()
+    kl, vl = (t.redistribute(mesh, whole).to_local(grad_placements=grad).repeat_interleave(rep, dim=2) for t in (k, v))
+    if split is not None:  # this rank's heads
+        n = h // mesh.size(split)
+        at = mesh.get_local_rank(split) * n
+        kl, vl = kl.narrow(2, at, n), vl.narrow(2, at, n)
+    return DTensor.from_local(flash_attention(ql, kl, vl, **kw), mesh, heads)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
     cache_k: torch.Tensor,  # (B, S, KV, hd)
@@ -129,6 +170,15 @@ def decode_attention(
     The grouped (kv, rep) form: no KV repeat traffic. Products as in
     ``flash_attention`` (operands upcast to float32).
     """
+    if is_dtensor(cache_k):
+        return _decode_attention_ranks(q, cache_k, cache_v, length, window=window, is_global=is_global)
+    return _decode(q, cache_k, cache_v, length, window=window, is_global=is_global)
+
+
+def _decode(q, cache_k, cache_v, length, *, window, is_global, start: int = 0, reduce=None):
+    """``decode_attention`` over the cache slots ``start`` onwards that
+    ``cache_k``/``cache_v`` hold; ``reduce(t, op)`` ("max" or "sum")
+    combines a partial result in place with the ranks holding the others."""
     b, _, h, hd = q.shape
     s_len, kv = cache_k.shape[1], cache_k.shape[2]
     rep = h // kv
@@ -137,7 +187,7 @@ def decode_attention(
     dev = q.device
     qg = (q * scalar(scale, cdt)).reshape(b, 1, kv, rep, hd)
     s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.to(cdt).float())
-    k_pos = torch.arange(s_len, dtype=torch.int32, device=dev)
+    k_pos = start + torch.arange(s_len, dtype=torch.int32, device=dev)
     mask = k_pos < length
     if window:
         in_win = (length - 1 - k_pos) < window
@@ -146,7 +196,41 @@ def decode_attention(
         else:
             mask = mask & (in_win | torch.as_tensor(is_global, dtype=torch.bool, device=dev))
     s = torch.where(mask[None, None, None, None], s, _NEG)
-    p = torch.softmax(s, dim=-1)
+    if reduce is None:
+        p = torch.softmax(s, dim=-1)
+    else:  # the softmax over every rank's slots: the max and the normaliser reduced
+        e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
     out = torch.einsum("bkrqs,bskd->bkrqd", p.to(cdt).float(), cache_v.to(cdt).float())
+    if reduce is not None:
+        out = reduce(out, "sum")
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
     return out.to(cdt)
+
+
+def _decode_attention_ranks(q, cache_k, cache_v, length, *, window, is_global):
+    """``decode_attention`` on a DTensor cache (batch and sequence sharded,
+    ``launch.sharding.cache_spec``): each rank scores its rows against its
+    slots, and the softmax and the weighted sum are reduced over the ranks
+    that share its rows. A decode step has no gradient, so plain
+    collectives do it."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache_k.device_mesh
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in cache_k.placements]
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in cache_k.placements]
+    held = [Shard(1) if s else r for s, r in zip(seq, rows)]
+    kl, vl = (t.redistribute(mesh, held).to_local() for t in (cache_k, cache_v))
+    groups = [mesh.get_group(i) for i, s in enumerate(seq) if s]
+
+    def reduce(t, op):
+        for group in groups:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+        return t
+
+    out = _decode(
+        q.redistribute(mesh, rows).to_local(), kl, vl, length, window=window, is_global=is_global,
+        start=shard_span(cache_k, 1)[0], reduce=reduce if groups else None,
+    )
+    return DTensor.from_local(out, mesh, rows)

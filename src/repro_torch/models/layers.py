@@ -15,6 +15,12 @@ is on). A float32 GEMM is float32 on the card only while
 holds both flags off for the span of a model forward, whatever the
 caller's settings, and restores them after. ``unembed`` upcasts both
 operands to float32.
+
+On a mesh of ranks (DTensor params and activations) ``embed``,
+``unembed`` and ``softmax_cross_entropy`` run on local tensors: each rank
+looks up and projects its own rows (the unembedding onto its slice of the
+vocab), and the loss reduces the log-sum-exp, the gold logit and the mean
+over the ranks (DTensor's ``gather`` of sharded logits is not supported).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch._dtensor import is_dtensor, on_rows, row_placements, shard_span, sum_over
 
 __all__ = [
     "rms_norm",
@@ -69,6 +77,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w (+ b)``. On DTensors the activations are laid out by rows
+    alone before and after the product (the reference's activation
+    constraints, ``_act``): every activation and its gradient then has one
+    layout, where DTensor's own choice leaves a tensor whose gradients
+    arrive in two layouts, which some torch releases cannot sum."""
+    if is_dtensor(x):
+        rows = row_placements(x)
+        y = _product(x.redistribute(x.device_mesh, rows), w, b)
+        return y.redistribute(y.device_mesh, rows)
+    return _product(x, w, b)
+
+
+def _product(x, w, b):
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
@@ -82,13 +103,37 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, dtype) -> torch.Tensor:
-    """Rows of ``table`` for int32 or int64 ``tokens``, cast to ``dtype``."""
+    """Rows of ``table`` for int32 or int64 ``tokens``, cast to ``dtype``. On
+    DTensors each rank looks its own rows of tokens up in the whole table
+    (DTensor's indexing of a sharded table fails on some torch releases)."""
+    if is_dtensor(table):
+        return on_rows(lambda p, t: embed(t, p["table"], dtype), {"table": table}, tokens)
     return table[tokens.long()].to(dtype)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Project to vocab logits (float32 for a stable loss/softmax)."""
+    if is_dtensor(table):
+        return _unembed_ranks(x, table)
     return torch.matmul(x.float(), table.float().t())
+
+
+def _unembed_ranks(x, table):
+    """``unembed`` on DTensors, on local tensors: each rank projects its rows
+    onto its slice of the vocab (the table's vocab split as the specs split
+    it, its FSDP dimension gathered), so the logits come out split by rows
+    and vocab alone (DTensor's own product leaves them in layouts whose
+    backward some torch releases cannot run)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = row_placements(x)
+    vocab = [isinstance(p, Shard) and p.dim == 0 and not isinstance(r, Shard) for p, r in zip(table.placements, rows)]
+    xl = x.redistribute(mesh, rows).to_local(grad_placements=[Partial() if v else r for v, r in zip(vocab, rows)])
+    tl = table.redistribute(mesh, [Shard(0) if v else Replicate() for v in vocab]).to_local(
+        grad_placements=[Shard(0) if v else Partial() if isinstance(r, Shard) else Replicate() for v, r in zip(vocab, rows)]
+    )
+    return DTensor.from_local(torch.matmul(xl.float(), tl.float().t()), mesh, [Shard(2) if v else r for v, r in zip(vocab, rows)])
 
 
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -116,9 +161,41 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size
 
     The padded vocab entries are masked with -1e30 so they take no mass.
     """
+    if is_dtensor(logits):
+        return _sharded_cross_entropy(logits, labels, vocab_size)
     if logits.shape[-1] > vocab_size:
         logits = logits.clone()
         logits[..., vocab_size:] = -1e30
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def _sharded_cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
+    """``softmax_cross_entropy`` on DTensor logits, on local tensors: each
+    rank takes its rows and its slice of the vocab (as the logits are laid
+    out), masks the padded entries alike, and the max (without gradient:
+    it cancels, as in ``torch.logsumexp``), the sum of exponentials, the
+    gold logit and the mean are reduced over the ranks holding the rest. A
+    plain scalar, alike on every rank (DTensor's arithmetic on such scalars
+    fails on some torch releases)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    mesh = logits.device_mesh
+    rows = row_placements(logits)
+    vocab = [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == 2]
+    mine = logits.redistribute(mesh, [Shard(2) if i in vocab else r for i, r in enumerate(rows)])
+    start, stop = shard_span(mine, 2)
+    ll = mine.to_local()
+    ids = torch.arange(start, stop, device=ll.device)
+    if logits.shape[-1] > vocab_size:
+        ll = torch.where(ids < vocab_size, ll, -1e30)
+    m = ll.detach().amax(dim=-1, keepdim=True)
+    for i in vocab:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    logz = torch.log(sum_over(torch.exp(ll - m).sum(dim=-1), mesh, vocab)) + m[..., 0]
+    gold = sum_over(torch.where(ids == lab[..., None], ll, 0.0).sum(dim=-1), mesh, vocab)
+    split = [i for i, r in enumerate(rows) if isinstance(r, Shard)]
+    return sum_over((logz - gold).sum(), mesh, split) / (logits.shape[0] * logits.shape[1])

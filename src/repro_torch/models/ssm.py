@@ -6,6 +6,11 @@ Python loop over chunks), O(L * Q) compute with O(1) state. Decode carries
 (conv window, SSM state) per layer, the attention-free analogue of a KV
 cache. Group convention: n_groups = 1 (B/C shared across heads).
 
+On DTensors (a mesh of ranks) a mixer runs on each rank's batch rows with
+its whole parameters, on local tensors (``_dtensor.on_rows``): the same
+arithmetic per row, replicated over the model axis, where DTensor's own
+propagation of the convolution's slices fails on some torch releases.
+
 The depthwise causal convolution is written as the sum of its K shifted
 slices, each product in float32: on the card ``F.conv1d`` goes through
 cuDNN, whose float32 is TF32 unless ``torch.backends.cudnn.allow_tf32`` is
@@ -18,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch._dtensor import is_dtensor, on_rows
 
 from .layers import rms_norm
 
@@ -79,6 +86,8 @@ def _segsum_chunk(dA: torch.Tensor) -> torch.Tensor:
 
 def ssm_forward(p: dict, u: torch.Tensor, cfg, *, return_state: bool = False):
     """One Mamba2 mixer. u: (B, L, D) -> (B, L, D) (+ final SSMState)."""
+    if is_dtensor(u):
+        return on_rows(lambda lp, lu: ssm_forward(lp, lu, cfg, return_state=return_state), p, u)
     dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv)
     d_inner, h, n, pdim = dims["d_inner"], dims["nheads"], dims["state"], dims["headdim"]
     b, l_real, _ = u.shape
@@ -157,6 +166,9 @@ def ssm_forward(p: dict, u: torch.Tensor, cfg, *, return_state: bool = False):
 
 def ssm_decode_step(p: dict, u_t: torch.Tensor, state: SSMState, cfg):
     """One-token step. u_t: (B, D) -> (B, D), new state."""
+    if is_dtensor(u_t):
+        step = lambda lp, lu, conv, ssd: ssm_decode_step(lp, lu, SSMState(conv, ssd), cfg)
+        return on_rows(step, p, u_t, state.conv, state.ssd)
     dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv)
     d_inner, h, n, pdim = dims["d_inner"], dims["nheads"], dims["state"], dims["headdim"]
     b = u_t.shape[0]

@@ -29,9 +29,17 @@ last slot and answers wrong.
 A forward runs under ``layers.reference_matmul`` (float32 accumulation of
 bf16 GEMMs, no TF32). An MoE layer on a mesh (``cfg.mesh_model`` with
 ``cfg.mesh_axis_sizes``, set by ``train.steps``) routes each data-parallel
-shard's tokens as its own group, as the reference does (``moe_groups``);
-where the groups live is placement, which this one-device forward leaves
-out.
+shard's tokens as its own group, as the reference does (``moe_groups``).
+
+On a mesh of ranks the params and inputs are DTensors and the forward is
+the same code: ``train.steps`` runs it under ``implicit_replication``, so
+the positions, masks and flags made here meet the DTensors as replicated
+ones. Where DTensor has no strategy, or some torch release fails, the
+model computes on local shards: the embedding, the unembedding and the
+loss (``models/layers.py``), attention (``models/attention.py``), an MoE
+layer's routing and expert products (``models/moe.py``), the Mamba2 mixer
+(``models/ssm.py``), and a decode step's writes into a sharded cache
+(``_write_slot``, ``_store``).
 
 Remat: in ``mode="train"`` with ``cfg.remat``, each layer (and each use of
 zamba2's shared block) runs under ``torch.utils.checkpoint``, the
@@ -50,6 +58,8 @@ import torch
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
+from repro_torch._dtensor import is_dtensor, shard_span
+
 from .layers import dense, embed, reference_matmul, rms_norm, rope, scalar, swiglu, unembed
 
 __all__ = ["forward", "Cache", "layer_flags"]
@@ -125,8 +135,12 @@ def _attn_sublayer(p, x, cfg, *, positions, mode, is_global=None, ck=None, cv=No
     if mode == "decode":
         # insert at position `length` (checked against the capacity by
         # `forward`), then attend over length + 1 tokens
-        ck[:, length : length + 1] = k.to(ck.dtype)
-        cv[:, length : length + 1] = v.to(cv.dtype)
+        if is_dtensor(ck):
+            _write_slot(ck, k, length)
+            _write_slot(cv, v, length)
+        else:
+            ck[:, length : length + 1] = k.to(ck.dtype)
+            cv[:, length : length + 1] = v.to(cv.dtype)
         o = attn_lib.decode_attention(
             q, ck, cv, length + 1, window=cfg.sliding_window, is_global=is_global
         )
@@ -138,6 +152,31 @@ def _attn_sublayer(p, x, cfg, *, positions, mode, is_global=None, ck=None, cv=No
         )
         out_k, out_v = k, v
     return dense(o.reshape(b, l, h * hd), p["wo"]), out_k, out_v
+
+
+def _write_slot(cache_t, new, length: int) -> None:
+    """``cache_t[:, length] = new[:, 0]`` for a DTensor cache (B, S, KV, hd),
+    in place. DTensor does not write through a slice of a sharded
+    dimension, so the write goes to the local shards: ``new`` is laid out
+    as the cache is on every dimension but the sequence, and the rank whose
+    sequence shard holds ``length`` writes it there."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole_seq = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache_t.placements]
+    local_new = new.redistribute(cache_t.device_mesh, whole_seq).to_local()
+    start, stop = shard_span(cache_t, 1)
+    if start <= length < stop:
+        cache_t.to_local()[:, length - start] = local_new[:, 0].to(cache_t.dtype)
+
+
+def _store(cache_t, i: int, new) -> None:
+    """``cache_t[i] = new`` in place; into a DTensor cache through its local
+    shards, ``new`` laid out as the cache's layer ``i`` is."""
+    if not is_dtensor(cache_t):
+        cache_t[i] = new
+        return
+    dst = cache_t[i]
+    dst.to_local().copy_(new.redistribute(dst.device_mesh, dst.placements).to_local())
 
 
 def moe_groups(cfg, tokens: int) -> int:
@@ -162,7 +201,7 @@ def _ff_sublayer(p, x, cfg):
             xn.reshape(b * l, d),
             p["router"], p["w_gate"], p["w_up"], p["w_down"],
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-            num_groups=moe_groups(cfg, b * l),
+            num_groups=moe_groups(cfg, b * l), group_axes=tuple(cfg.mesh_dp),
         )
         y = out.y.reshape(b, l, d)
         if cfg.dense_residual:
@@ -229,8 +268,8 @@ def _fwd_ssm_stack(params, x, cfg, *, mode, cache: Cache | None):
                 {k: v for k, v in lp.items() if k != "ln1"},
                 rms_norm(x[:, 0], lp["ln1"]), ssm_lib.SSMState(cache.conv[i], cache.ssd[i]), cfg,
             )
-            cache.conv[i] = st.conv
-            cache.ssd[i] = st.ssd
+            _store(cache.conv, i, st.conv)
+            _store(cache.ssd, i, st.ssd)
             x = x + delta[:, None]
         return x, _zero(x), cache.conv, cache.ssd
 
@@ -392,6 +431,19 @@ def _prefill_attn_cache(ks, vs, cfg, b, l) -> Cache:
     by ``cfg.cache_pad`` slots (the decode budget)."""
     pad = cfg.cache_pad
     if pad:
-        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
-        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+        ks, vs = _pad_seq(ks, pad), _pad_seq(vs, pad)
     return Cache(k=ks, v=vs, length=l)
+
+
+def _pad_seq(t, pad: int):
+    """``pad`` zero slots after the sequence dimension of stacked K/V (A, B,
+    S, KV, hd); a DTensor is padded on its local shards, the sequence
+    gathered first where a mesh axis shards it (DTensor's own pad fails on
+    some torch releases)."""
+    if not is_dtensor(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    whole_seq = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p for p in t.placements]
+    t = t.redistribute(t.device_mesh, whole_seq)
+    return DTensor.from_local(torch.nn.functional.pad(t.to_local(), (0, 0, 0, 0, 0, pad)), t.device_mesh, whole_seq)

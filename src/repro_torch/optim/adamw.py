@@ -10,6 +10,10 @@ ones it was given as they were.
 A gradient leaf may be ``None``, as autograd gives one for a parameter the
 loss never reads (``jax.value_and_grad`` gives zeros there): it counts as
 zeros, in the norm and in the update, so the leaf still decays.
+
+On a mesh of ranks (``train.steps``) the leaves are DTensors: the fp32
+master and the moments are laid out as their param, and the update runs
+leafwise on the local shards.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch._dtensor import is_dtensor
 from repro_torch._tree import leaves, tree_map
 
 __all__ = ["AdamWState", "init", "update", "cosine_schedule", "global_norm"]
@@ -31,21 +36,31 @@ class AdamWState(NamedTuple):
     nu: Any
 
 
+def _zeros(p) -> torch.Tensor:
+    """float32 zeros shaped as ``p``; laid out as ``p`` when it is a DTensor."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params) -> AdamWState:
     """Step 0 (an int32 0-d tensor on the params' device), the fp32 master
-    copy and zero moments."""
+    copy and zero moments, each laid out as its param (a DTensor's shards
+    stay on their ranks)."""
     first = leaves(params)[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         master=tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+        mu=tree_map(_zeros, params),
+        nu=tree_map(_zeros, params),
     )
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, summed in the
-    reference's leaf order; ``None`` leaves add nothing."""
+    reference's leaf order; ``None`` leaves add nothing. On DTensor leaves
+    each sum is a partial one per rank, and the sqrt reduces them over every
+    shard first: one norm, alike on every rank, scales every leaf."""
     parts = [torch.sum(torch.square(l.float())) for l in leaves(tree)]
     return torch.sqrt(sum(parts[1:], parts[0]))
 

@@ -30,7 +30,9 @@ def init_ef(grads_like) -> EFState:
 
 
 def compress(g: torch.Tensor):
-    """Symmetric per-tensor int8 quantization. Returns (q, scale)."""
+    """Symmetric per-tensor int8 quantization. Returns (q, scale). The
+    scale is the whole tensor's, on a DTensor too: its max reduces over
+    every shard."""
     g32 = g.to(torch.float32)
     scale = torch.clamp(torch.max(torch.abs(g32)), min=1e-12) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)

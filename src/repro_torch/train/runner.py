@@ -14,6 +14,11 @@ machinery a long job needs:
 
 ``device`` is where batches are made and checkpoints restored (``None``:
 CUDA, as every entry point of the port).
+
+On a mesh of ranks (DTensor params, ``train.steps``) every rank runs this
+loop over the same batches, a restart included (the pipeline is a function
+of the step), and saves and restores together (``checkpoint``: every rank
+gathers, rank 0 alone writes); rank 0 alone logs.
 """
 
 from __future__ import annotations
@@ -23,11 +28,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable
 
-from repro_torch import checkpoint
+from repro_torch import _dtensor, checkpoint
 from repro_torch._device import resolve
+from repro_torch._tree import leaves
 from repro_torch.data import pipeline as data_pipeline
 
 log = logging.getLogger("repro_torch.runner")
+_QUIET = logging.getLogger("repro_torch.runner.other_ranks")  # every rank but 0 logs here: nowhere
+_QUIET.disabled = True
 
 __all__ = ["RunnerConfig", "RunnerReport", "run_training"]
 
@@ -52,6 +60,15 @@ class RunnerReport:
     losses: list = field(default_factory=list)
 
 
+def _rank0(params) -> bool:
+    """False on every rank of a mesh of ranks but rank 0."""
+    if not any(_dtensor.is_dtensor(t) for t in leaves(params)):
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
 def run_training(
     step_fn: Callable,
     params,
@@ -69,6 +86,7 @@ def run_training(
     dev = resolve(device)
     report = RunnerReport()
     start = 0
+    say = log if _rank0(params) else _QUIET
 
     def restore(step):
         state = checkpoint.restore(rcfg.ckpt_dir, step, {"params": params, "opt": opt_state}, device=dev)
@@ -78,7 +96,7 @@ def run_training(
     if latest is not None:
         params, opt_state = restore(latest)
         start = latest
-        log.info("resumed from checkpoint step %d", latest)
+        say.info("resumed from checkpoint step %d", latest)
 
     retries = 0
     step = start
@@ -100,7 +118,7 @@ def run_training(
                 med = sorted(durations[-20:])[len(durations[-20:]) // 2]
                 if dt > rcfg.straggler_factor * med:
                     report.straggler_events += 1
-                    log.warning("straggler: step %d took %.3fs (median %.3fs)", step, dt, med)
+                    say.warning("straggler: step %d took %.3fs (median %.3fs)", step, dt, med)
             durations.append(dt)
             report.losses.append(loss)
             step += 1
@@ -112,11 +130,11 @@ def run_training(
                     background=True, meta={"loss": loss},
                 )
             if step % rcfg.log_every == 0:
-                log.info("step %d loss %.4f (%.3fs)", step, loss, dt)
+                say.info("step %d loss %.4f (%.3fs)", step, loss, dt)
         except Exception as e:  # noqa: BLE001 — any fault triggers recovery
             retries += 1
             report.restarts += 1
-            log.warning("step %d failed (%s); recovery attempt %d", step, e, retries)
+            say.warning("step %d failed (%s); recovery attempt %d", step, e, retries)
             if retries > rcfg.max_retries:
                 raise
             checkpoint.wait_pending()

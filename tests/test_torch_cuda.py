@@ -630,3 +630,75 @@ def test_run_training_on_card_survives_a_fault(cuda, tmp_path):
     )
     for a, b in zip(leaves(rep.opt_state.master), leaves(clean.opt_state.master)):
         assert a.device.type == "cuda" and float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def _nccl_rank_steps(rank, out):
+    """Two steps of reduced qwen2 (float32) on a (1, 1) mesh of one NCCL
+    rank, DTensor leaves; the losses and the whole state to ``out``."""
+    from repro_torch import _dtensor
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step, place_state
+
+    cfg = reduce_for_smoke(get_config("qwen2-1.5b"))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    step, info = make_train_step(cfg, mesh, lr_fn=adamw.cosine_schedule(1e-3, 1, 4), batch=2, seq_len=64)
+    params = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    params, opt = place_state(mesh, info, params, adamw.init(params))
+    assert all(_dtensor.is_dtensor(t) and t.device.type == "cuda" for t in leaves((params, opt)))
+    losses = []
+    for i in range(2):
+        params, opt, m = step(params, opt, pipeline.synthetic_batch(cfg, 2, 64, seed=0, step=i, device=mesh.rank_device))
+        losses.append(float(m["loss"]))
+    whole = [_dtensor.full(t).cpu().numpy() for t in leaves((opt.mu, opt.master))]
+    np.savez(f"{out}/rank.npz", *whole, losses=np.array(losses))
+
+
+def test_one_nccl_rank_trains_as_one_card_does(cuda, tmp_path):
+    """The rank path on the card: one NCCL rank (``launch.ranks.spawn``, a
+    ``file://`` rendezvous) with (1, 1) DTensor leaves, two steps of reduced
+    qwen2, against the same two steps on the card without ranks. Only the
+    order of some sums differs (the sharded cross entropy, DTensor's
+    reductions): the losses within 1e-5, every first moment within 1e-4 of
+    its leaf's largest, every master leaf within 1e-4 on the elements whose
+    gradient is zero or at least 1% of its leaf's largest and within 2 x the
+    summed lr elsewhere (the rules of tests/test_torch_train_parity.py;
+    a gradient's share is the least over the two steps)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import pipeline
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    ranks.spawn(_nccl_rank_steps, 1, str(tmp_path), device_type="cuda", init_method=f"file://{tmp_path}/rendezvous")
+    got = np.load(tmp_path / "rank.npz")
+    cfg = reduce_for_smoke(get_config("qwen2-1.5b"))
+    lr_fn = adamw.cosine_schedule(1e-3, 1, 4)
+    step, _ = make_train_step(cfg, make_mesh((1, 1), ("data", "model"), devices=cuda), lr_fn=lr_fn, batch=2, seq_len=64)
+    params = tree_map(lambda t: t.to(cuda), model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+    opt = adamw.init(params)
+    losses, lrs, ratios, prev = [], [], None, None
+    for i in range(2):
+        params, opt, m = step(params, opt, pipeline.synthetic_batch(cfg, 2, 64, seed=0, step=i, device=cuda))
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        # each step's gradient, up to the clip scale, from the first moments: g_t ~ mu_t - b1 mu_{t-1}
+        mu = [t.cpu().double().numpy() for t in leaves(opt.mu)]
+        g = mu if prev is None else [a - 0.9 * b for a, b in zip(mu, prev)]
+        r = [np.abs(x) / max(np.abs(x).max(), 1e-300) for x in g]
+        ratios, prev = (r if ratios is None else [np.minimum(a, b) for a, b in zip(ratios, r)]), mu
+    assert np.all(np.abs(got["losses"] - losses) <= 1e-5 * np.abs(losses)), (got["losses"], losses)
+    mus, masters = leaves(opt.mu), leaves(opt.master)
+    theirs = [got[f"arr_{i}"] for i in range(len(mus) + len(masters))]
+    for m_r, w_r, m_c, w_c, ratio in zip(theirs[: len(mus)], theirs[len(mus):], mus, masters, ratios):
+        m_c, w_c = m_c.cpu().numpy(), w_c.cpu().numpy()
+        assert float(np.abs(m_r - m_c).max()) <= 1e-4 * float(np.abs(m_c).max())
+        fine = (ratio >= 1e-2) | (ratio == 0)  # a gradient at least 1% of its leaf's largest at each step
+        diff = np.abs(w_r - w_c)
+        assert float(diff[fine].max(initial=0.0)) <= 1e-4 * float(np.abs(w_c).max())
+        assert float(diff.max()) <= 2 * sum(lrs)

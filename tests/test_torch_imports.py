@@ -74,6 +74,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.train.runner",
         "repro_torch.launch.roofline",
         "repro_torch.launch.dryrun",
+        "repro_torch.launch.ranks",
+        "repro_torch._dtensor",
     ):
         assert mod in res["imported"]
 
