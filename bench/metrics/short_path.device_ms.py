@@ -1,0 +1,11 @@
+"""The short path's device time per launch, from the CUDA events the program
+records around each launch while tracing (the traced slice): the mean of
+its ``dispatch_path_device_s{path=short}`` histogram in
+``repro_torch.obs.metrics.default_registry()``, in ms. None where the
+path never launched while tracing, or the program has no such histogram."""
+
+from bench.spans import path_device_ms
+
+
+def read(ctx):
+    return path_device_ms("short")

@@ -212,11 +212,12 @@ def run_stages(plan: BuildPlan, state: dict, *, observer: Optional[Callable] = N
     """Advance ``state`` through ``plan``'s stages; return ``state["result"]``.
 
     ``observer(stage_name, state)`` fires after each stage. When the
-    process-global tracer is enabled, each stage lands as a span (named
-    after the stage, ``engine`` attr from the plan) under the ambient span.
+    process-global tracer is enabled or a profiler records
+    (``obs.trace.tracing()``), each stage lands as a span (named after the
+    stage, ``engine`` attr from the plan) under the ambient span.
     """
     tr = obs_trace.get_tracer()
-    if not tr.enabled:
+    if not obs_trace.tracing():
         for stage in plan.stages:
             state = stage.fn(state)
             if observer is not None:

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch._device import as_index, resolve, to_numpy
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import default_registry
 
 from . import block_rmq, packing, sparse_table
 
@@ -155,6 +156,47 @@ def record_splits(cb):
         _split_sink.cb = prev
 
 
+def _device_nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts`` that live off the host: what a copy
+    between host and device moves for them (0 on the CPU)."""
+    return sum(t.nbytes for t in ts if isinstance(t, torch.Tensor) and t.device.type != "cpu")
+
+
+def _padded(lm, rm, device):
+    """Bounds padded to a power of two with (0, 0) queries, as the reference
+    pads to bound its jit cache (the same launch shapes here), on ``device``;
+    the count of real queries; and the host arrays (``lm``, ``rm`` and their
+    padded copies), for the caller to free once the paths have launched."""
+    k = lm.size
+    kp = 1 << (k - 1).bit_length() if k > 1 else 1
+    lp = np.zeros(kp, np.int32)
+    rp = np.zeros(kp, np.int32)
+    lp[:k] = lm
+    rp[:k] = rm
+    return as_index(lp, device), as_index(rp, device), k, (lm, rm, lp, rp)
+
+
+# Each path's launches timed by CUDA events while tracing, as (path, start,
+# end): read once the end event has completed, so no synchronize is added.
+_device_times = []
+_device_times_lock = threading.Lock()
+
+
+def _observe_device_times() -> None:
+    """Move the completed pairs of ``_device_times`` into the
+    ``dispatch_path_device_s{path}`` histogram; keep the rest pending."""
+    with _device_times_lock:
+        pending = []
+        for path, start, end in _device_times:
+            if end.query():
+                default_registry().histogram("dispatch_path_device_s", path=path).observe(
+                    start.elapsed_time(end) / 1e3
+                )
+            else:
+                pending.append((path, start, end))
+        _device_times[:] = pending
+
+
 def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, device):
     """Range-adaptive dispatch core: partition, per-regime launches, scatter-back.
 
@@ -167,66 +209,108 @@ def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, devic
     Bounds must be integer arrays inside the int32 index range: every
     constituent computes int32 indices, so an out-of-range bound would wrap
     silently instead of failing loudly.
+
+    Traced as a ``dispatch`` span (attrs ``short``, ``long``: the split)
+    over the phases ``dispatch.bounds``, ``dispatch.partition``,
+    ``dispatch.launch`` (one per path launched) and, for mixed batches,
+    ``dispatch.scatter``. Counted always in ``obs.metrics.default_registry()``:
+    ``dispatch_batches_total`` and ``dispatch_copy_bytes_total{direction}``
+    (``d2h`` / ``h2d``: the bytes of every copy between host and device).
+    While ``obs.trace.tracing()`` on a CUDA device, each launch's device time
+    goes to ``dispatch_path_device_s{path}`` (``short`` / ``long``).
     """
-    l = to_numpy(l)
-    r = to_numpy(r)
-    if not (np.issubdtype(l.dtype, np.integer) and np.issubdtype(r.dtype, np.integer)):
-        raise TypeError(f"query bounds must be integer arrays, got {l.dtype} / {r.dtype}")
-    l = l.astype(np.int64)
-    r = r.astype(np.int64)
-    if l.size == 0:  # nothing to do: no phantom padded query, no launch
-        return (
-            torch.zeros(0, dtype=torch.int32, device=device),
-            torch.zeros(0, dtype=out_dtype, device=device),
-        )
-    if int(l.min()) < 0 or int(r.max()) > _INT32_MAX:
-        raise ValueError(
-            f"query bounds [{int(l.min())}, {int(r.max())}] outside the engines' "
-            "int32 index range"
-        )
-    short = (r - l + 1) <= threshold
-    n_short = int(short.sum())
-    cb = getattr(_split_sink, "cb", None)
-    if cb is not None:
-        cb(n_short, int(l.size - n_short))
-    # Regime split onto the ambient trace span (the server's launch span
-    # when tracing is on) — obs.set_attr is a no-op outside any span.
-    if obs_trace.get_tracer().enabled:
-        obs_trace.set_attr("split_short", n_short)
-        obs_trace.set_attr("split_long", int(l.size - n_short))
+    if _device_times:
+        _observe_device_times()
+    tr = obs_trace.get_tracer()
+    reg = default_registry()
+    reg.counter("dispatch_batches_total").inc()
+    with tr.span("dispatch") as span:
+        with tr.span("dispatch.bounds"):
+            d2h = _device_nbytes(l, r)
+            l = to_numpy(l)
+            r = to_numpy(r)
+            if not (np.issubdtype(l.dtype, np.integer) and np.issubdtype(r.dtype, np.integer)):
+                raise TypeError(f"query bounds must be integer arrays, got {l.dtype} / {r.dtype}")
+            l = l.astype(np.int64)
+            r = r.astype(np.int64)
+            if l.size == 0:  # nothing to do: no phantom padded query, no launch
+                return (
+                    torch.zeros(0, dtype=torch.int32, device=device),
+                    torch.zeros(0, dtype=out_dtype, device=device),
+                )
+            if int(l.min()) < 0 or int(r.max()) > _INT32_MAX:
+                raise ValueError(
+                    f"query bounds [{int(l.min())}, {int(r.max())}] outside the engines' "
+                    "int32 index range"
+                )
 
-    # Every launch pads its batch to a power of two with (0, 0) queries, as
-    # the reference does to bound its jit cache: the same launch shapes here.
-    def _launch(fn, lm, rm):
-        k = lm.size
-        kp = 1 << (k - 1).bit_length() if k > 1 else 1
-        lp = np.zeros(kp, np.int32)
-        rp = np.zeros(kp, np.int32)
-        lp[:k] = lm
-        rp[:k] = rm
-        qi, qv = fn(as_index(lp, device), as_index(rp, device))
-        return qi, qv, k
+        with tr.span("dispatch.partition"):
+            short = (r - l + 1) <= threshold
+            n_short = int(short.sum())
+            n_long = int(l.size - n_short)
+            cb = getattr(_split_sink, "cb", None)
+            if cb is not None:
+                cb(n_short, n_long)
+            if tr.enabled:
+                span.set_attr("short", n_short)
+                span.set_attr("long", n_long)
+            if n_short == 0 or n_long == 0:
+                # Uniform batches skip the partition/scatter round-trip entirely.
+                parts = [("short" if n_short else "long", None, _padded(l, r, device))]
+            else:
+                idx = np.empty(l.shape, np.int32)
+                parts = [
+                    (path, mask, _padded(l[mask], r[mask], device))
+                    for path, mask in (("short", short), ("long", ~short))
+                ]
+            h2d = sum(_device_nbytes(lp, rp) for _, _, (lp, rp, _, _) in parts)
 
-    # Uniform batches skip the partition/scatter round-trip entirely.
-    if n_short == short.size or n_short == 0:
-        qi, qv, k = _launch(short_fn if n_short else long_fn, l, r)
-        return qi[:k], qv[:k]
+        timed = torch.device(device).type == "cuda" and obs_trace.tracing()
+        launched = []
+        for path, mask, (lp, rp, k, _) in parts:
+            with tr.span("dispatch.launch"):
+                fn = short_fn if path == "short" else long_fn
+                if timed:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    qi, qv = fn(lp, rp)
+                    end.record()
+                    with _device_times_lock:
+                        _device_times.append((path, start, end))
+                else:
+                    qi, qv = fn(lp, rp)
+            launched.append((mask, qi[:k], qv[:k]))
 
-    # Mixed batch: launch both sub-batches, then bring both to the host (one
-    # copy each) and scatter there.
-    idx = np.empty(l.shape, np.int32)
-    val = None
-    launched = [
-        (mask, _launch(fn, l[mask], r[mask]))
-        for mask, fn in ((short, short_fn), (~short, long_fn))
-    ]
-    for mask, (qi, qv, k) in launched:
-        qv = to_numpy(qv[:k])
-        if val is None:
-            val = np.empty(l.shape, qv.dtype)
-        idx[mask] = to_numpy(qi[:k])
-        val[mask] = qv
-    return torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device)
+        if len(launched) == 1:
+            out = launched[0][1:]
+        else:
+            # Mixed batch: bring both answer sets to the host (one copy each)
+            # and scatter there, then copy the batch's answers up.
+            with tr.span("dispatch.scatter"):
+                # The sub-batches' host arrays go only now, after the
+                # launches: freed before them, glibc hands their pages back
+                # to the system and the answers' downloads below fault in
+                # fresh ones (the copies down took about twice as long,
+                # about 9% of the rate at 2^22; PERF.md §6).
+                del parts, _
+                val = None
+                for mask, qi, qv in launched:
+                    d2h += _device_nbytes(qi, qv)
+                    qv = to_numpy(qv)
+                    if val is None:
+                        val = np.empty(l.shape, qv.dtype)
+                    idx[mask] = to_numpy(qi)
+                    val[mask] = qv
+                out = torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device)
+                h2d += _device_nbytes(*out)
+            if timed:  # the downloads waited for both launches
+                _observe_device_times()
+    if d2h:
+        reg.counter("dispatch_copy_bytes_total", direction="d2h").inc(d2h)
+    if h2d:
+        reg.counter("dispatch_copy_bytes_total", direction="h2d").inc(h2d)
+    return out
 
 
 def query(s: HybridRMQ, l, r) -> Tuple[torch.Tensor, torch.Tensor]:

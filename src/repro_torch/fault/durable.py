@@ -46,7 +46,6 @@ from typing import Callable, Optional
 
 from repro_torch import checkpoint as checkpoint_mod
 from repro_torch.obs import trace as obs_trace
-from repro_torch.obs.metrics import default_registry
 from repro_torch.update.deltas import DeltaLog
 from repro_torch.update.engines import OnlineEngine
 
@@ -130,9 +129,6 @@ class DurableEngine:
             for seq, batch in d.journal.replay(after_seq=int(meta["seq"])):
                 online.apply(batch, seq=seq)
                 d.replayed += 1
-        reg = default_registry()
-        reg.counter("restores_total").inc()
-        reg.counter("restore_replays_total").inc(d.replayed)
         return d
 
     def recover(self, *, device=None, mesh=None, axis_names=None) -> int:
@@ -190,7 +186,6 @@ class DurableEngine:
             seq = self._seq + 1
             with tr.span("journal_append", attrs={"seq": seq} if tr.enabled else None):
                 self.journal.append(seq, batch)  # WAL: durable BEFORE any mutation
-            default_registry().counter("wal_appends_total").inc()
             self._seq = seq
             obs = self._observer(observer)
             try:
@@ -198,7 +193,6 @@ class DurableEngine:
             except BaseException:
                 try:
                     self.journal.abort(seq)
-                    default_registry().counter("wal_aborts_total").inc()
                 except BaseException:
                     pass  # crash-during-abort: at-least-once replay, see above
                 raise
@@ -248,7 +242,6 @@ class DurableEngine:
                 meta["seq"] = self._seq
                 checkpoint_mod.save_snapshot(self.ckpt_dir, self._seq, arrays, meta, fault=self._fault)
                 self.journal.truncate_upto(self._seq)
-            default_registry().counter("checkpoints_total").inc()
             return meta
 
     def close(self) -> None:

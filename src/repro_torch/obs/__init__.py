@@ -24,6 +24,7 @@ from repro_torch.obs.trace import (
     get_tracer,
     set_attr,
     set_tracer,
+    tracing,
     verify_request_chains,
 )
 
@@ -42,5 +43,6 @@ __all__ = [
     "reset_default_registry",
     "set_attr",
     "set_tracer",
+    "tracing",
     "verify_request_chains",
 ]

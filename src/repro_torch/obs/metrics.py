@@ -277,7 +277,7 @@ _DEFAULT_LOCK = threading.Lock()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-global registry (fault/durable counters live here)."""
+    """The process-global registry (``core.hybrid``'s dispatch counters live here)."""
     return _DEFAULT
 
 

@@ -2,23 +2,32 @@
 
 A **span** is one named, timed unit of work: monotonic start/end stamps
 (``time.perf_counter``), a process-unique id, an optional parent id, and a
-small key/value attr dict. Spans form trees — the serving layer opens a
-``request`` root per client request and hangs ``admission``/``queue``/
-``resolve`` children off it, the batcher opens a ``flush`` root per
-coalesced launch with ``coalesce``/``launch``/``scatter`` children, and the
-build/update pipelines ride the ``core.build.run_stages`` sequencer so every
-stage (``local_build``, ``apply_deltas``, ``publish``, ...) lands as a span
-under whatever was current. Cross-thread parenting is explicit (pass
+small key/value attr dict. While a ``torch.profiler`` records on the
+calling thread, ``Tracer.span`` also enters
+``torch.profiler.record_function(name)``, so the span shows as a host event
+on the profiler's clock, beside the device operations it launched; that
+holds for the disabled tracer too. ``tracing()`` says whether either is on.
+Spans form trees — the serving layer opens a ``request`` root per client
+request and hangs ``admission``/``queue``/``resolve`` children off it, the
+batcher opens a ``flush`` root per coalesced launch with
+``coalesce``/``launch``/``scatter`` children, ``core.hybrid`` opens a
+``dispatch`` root per batch over its phases, and the build/update
+pipelines ride the ``core.build.run_stages`` sequencer so every stage
+(``local_build``, ``apply_deltas``, ``publish``, ...) lands as a span under
+whatever was current. Cross-thread parenting is explicit (pass
 ``parent=``); same-thread nesting is ambient via a ``contextvars`` current
 span, which thread boundaries naturally reset.
 
 Design constraints, in order:
 
 1. **Zero cost when disabled.** The default global tracer is a shared
-   disabled singleton: ``span()`` returns one reusable no-op context
-   manager, ``start()`` returns one reusable no-op span, and neither path
-   allocates (asserted by a tracemalloc probe in tests/test_obs.py). Hot
-   paths gate attr-dict construction on ``tracer.enabled``.
+   disabled singleton: with no profiler recording, ``span()`` returns one
+   reusable no-op context manager after one flag check, ``start()`` returns
+   one reusable no-op span, and neither path allocates (asserted by
+   tracemalloc probes in tests/test_obs.py and
+   tests/test_torch_obs_dispatch.py). Hot paths gate attr-dict
+   construction on ``tracer.enabled``. torch is imported lazily, by the
+   first ``span()`` call, so this module stays importable without it.
 2. **Bounded memory.** Finished spans land in a thread-safe ring buffer
    (``deque(maxlen=capacity)``): overflow drops the *oldest* spans, so a
    long soak keeps its newest history.
@@ -53,6 +62,7 @@ __all__ = [
     "get_tracer",
     "set_attr",
     "set_tracer",
+    "tracing",
     "verify_request_chains",
 ]
 
@@ -118,6 +128,40 @@ class _NoopCtx:
 
 
 _NOOP_CTX = _NoopCtx()
+
+_profiler_enabled = None  # torch's flag read, bound by the first _profiling()
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records on this thread (about 0.1 µs)."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        import torch
+
+        _profiler_enabled = torch._C._autograd._profiler_enabled
+    return _profiler_enabled()
+
+
+class _ProfiledCtx:
+    """A span's context inside ``torch.profiler.record_function(name)``."""
+
+    __slots__ = ("_rf", "_inner")
+
+    def __init__(self, name: str, inner):
+        import torch
+
+        self._rf = torch.profiler.record_function(name)
+        self._inner = inner
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            return self._inner.__exit__(*exc)
+        finally:
+            self._rf.__exit__(*exc)
 
 
 class _SpanCtx:
@@ -190,11 +234,13 @@ class Tracer:
             self._buf.append(span)
 
     def span(self, name: str, *, parent=None, attrs: Optional[dict] = None):
-        """Context manager: start + make-current + finish. Zero-alloc no-op
-        when disabled (the shared context manager is reused)."""
-        if not self.enabled:
-            return _NOOP_CTX
-        return _SpanCtx(self, self.start(name, parent=parent, attrs=attrs))
+        """Context manager: start + make-current + finish, and a
+        ``record_function(name)`` while a profiler records. Zero-alloc no-op
+        when neither is on (the shared context manager is reused)."""
+        ctx = _SpanCtx(self, self.start(name, parent=parent, attrs=attrs)) if self.enabled else _NOOP_CTX
+        if _profiling():
+            return _ProfiledCtx(name, ctx)
+        return ctx
 
     def instant(self, name: str, *, parent=None, attrs: Optional[dict] = None) -> Span:
         """A zero-duration marker span, committed immediately."""
@@ -287,6 +333,13 @@ def set_tracer(tracer: Optional[Tracer]) -> Tracer:
         return prev
 
 
+def tracing() -> bool:
+    """Whether spans record anywhere: the global tracer is enabled or a
+    ``torch.profiler`` records on this thread. Gates work done only for
+    the trace (attrs, stage spans, device timing events)."""
+    return _GLOBAL.enabled or _profiling()
+
+
 def current_span() -> Optional[Span]:
     """This context's ambient span (None outside any ``span()`` block)."""
     return _CURRENT.get()
@@ -294,7 +347,7 @@ def current_span() -> Optional[Span]:
 
 def set_attr(key: str, value) -> None:
     """Annotate the ambient span, if any — the seam engine internals use
-    (e.g. ``hybrid.dispatch_by_length`` stamping its regime split) without
+    (e.g. ``update.engines`` stamping a patch's write counts) without
     holding a tracer reference. No-op when nothing is current."""
     cur = _CURRENT.get()
     if cur is not None:

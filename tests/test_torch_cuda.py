@@ -102,6 +102,41 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     assert block_min.launches == before[0] + 1 and fused_query.launches == before[1] + 1
 
 
+def test_dispatch_counts_copies_and_times_each_path_on_card(cuda, monkeypatch):
+    from repro_torch.obs import metrics, trace
+
+    reg = metrics.MetricsRegistry()
+    monkeypatch.setattr(metrics, "_DEFAULT", reg)
+    n, b = 1 << 20, 5000
+    x = np.random.default_rng(4).random(n, dtype=np.float32)
+    s = hybrid.build(x, device=cuda)  # threshold sqrt(n) = 1024
+    rng = np.random.default_rng(5)
+    length = rng.integers(1, n // 64, b)
+    l = (rng.random(b) * (n - length + 1)).astype(np.int64)
+    lt = torch.from_numpy(l.astype(np.int32)).to(cuda)
+    rt = torch.from_numpy((l + length - 1).astype(np.int32)).to(cuda)
+    n_short = int((length <= s.threshold).sum())
+    assert 0 < n_short < b
+    prev = trace.set_tracer(trace.Tracer())
+    try:
+        idx, val = hybrid.query(s, lt, rt)
+    finally:
+        trace.set_tracer(prev)
+    want = ref.rmq_ref(x, l, l + length - 1)
+    assert np.array_equal(idx.cpu().numpy(), want)
+    pad = lambda k: 1 << (k - 1).bit_length()
+    # Down: both bounds (int32) and every answer (int32 index, float32
+    # value); up: each path's padded bounds and the batch's answers.
+    assert reg.counter_total("dispatch_copy_bytes_total", direction="d2h") == 8 * b + 8 * b
+    assert reg.counter_total("dispatch_copy_bytes_total", direction="h2d") == (
+        8 * pad(n_short) + 8 * pad(b - n_short) + 8 * b
+    )
+    assert reg.counter_total("dispatch_batches_total") == 1
+    times = {h.labels["path"]: h for name, h in reg.histograms() if name == "dispatch_path_device_s"}
+    assert sorted(times) == ["long", "short"]
+    assert all(h.count == 1 and h.sum > 0 for h in times.values())
+
+
 def test_serve_cli_on_card(cuda, capsys):
     serve.main(["--engine", "hybrid", "--n", str(1 << 16), "--batch", "512", "--batches", "2"])
     serve.main(
