@@ -1,11 +1,12 @@
 """Range-adaptive hybrid RMQ dispatcher (the paper's crossover, exploited).
 
 The blocked structure is fastest for *short* ranges; the O(1) sparse table
-overtakes it at medium and large ranges. A batch is partitioned on the host
-by range length against a threshold: short ranges go to the blocked path
-(the fused CUDA kernel ``kernels.ops`` when ``use_kernels``, else the plain
-``block_rmq``), long ranges to the sparse table over the raw array, and the
-two result sets are scattered back into batch order. Results equal
+overtakes it at medium and large ranges. A batch is partitioned by range
+length against a threshold on the structure's device: short ranges go to
+the blocked path (the fused CUDA kernel ``kernels.ops`` when
+``use_kernels``, else the plain ``block_rmq``), long ranges to the sparse
+table over the raw array, and the two result sets are gathered back into
+batch order there. Results equal
 ``block_rmq.query`` bit for bit. With ``packed=`` both tiers hold packed
 (value, index) words (``core.packing``); the short path then runs the
 ``fused_query_packed`` kernel for packed32 and quantized, and the plain
@@ -25,7 +26,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import as_index, resolve, to_numpy
+from repro_torch._device import as_index, resolve
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import default_registry
 
@@ -156,24 +157,62 @@ def record_splits(cb):
         _split_sink.cb = prev
 
 
-def _device_nbytes(*ts) -> int:
-    """Bytes of the tensors among ``ts`` that live off the host: what a copy
-    between host and device moves for them (0 on the CPU)."""
-    return sum(t.nbytes for t in ts if isinstance(t, torch.Tensor) and t.device.type != "cpu")
+def _is_integer(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return not (dtype.is_floating_point or dtype.is_complex or dtype == torch.bool)
+    return np.issubdtype(dtype, np.integer)
 
 
-def _padded(lm, rm, device):
-    """Bounds padded to a power of two with (0, 0) queries, as the reference
-    pads to bound its jit cache (the same launch shapes here), on ``device``;
-    the count of real queries; and the host arrays (``lm``, ``rm`` and their
-    padded copies), for the caller to free once the paths have launched."""
-    k = lm.size
-    kp = 1 << (k - 1).bit_length() if k > 1 else 1
-    lp = np.zeros(kp, np.int32)
-    rp = np.zeros(kp, np.int32)
-    lp[:k] = lm
-    rp[:k] = rm
-    return as_index(lp, device), as_index(rp, device), k, (lm, rm, lp, rp)
+def _count_copy(reg, direction: str, nbytes: int) -> None:
+    reg.counter("dispatch_copy_bytes_total", direction=direction).inc(nbytes)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """Integer bounds (a tensor or a numpy array) as a 1-D tensor where they
+    live, in their own integer width (unsigned ones wider than a byte as
+    int64); a host array is wrapped, not copied, where numpy allows."""
+    if not isinstance(a, torch.Tensor):
+        if a.dtype.kind == "u" and a.dtype.itemsize > 1:
+            a = a.astype(np.int64)
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    elif a.dtype in (torch.uint16, torch.uint32, torch.uint64):
+        a = a.to(torch.int64)
+    return a.reshape(-1)
+
+
+def _to_device(a: torch.Tensor, device, reg) -> torch.Tensor:
+    """``a`` on ``device``; a copy between host and device is counted."""
+    if a.device != device:
+        if a.device.type == "cpu" or device.type == "cpu":
+            _count_copy(reg, "h2d" if a.device.type == "cpu" else "d2h", a.nbytes)
+        a = a.to(device)
+    return a
+
+
+def _short_mask(l: torch.Tensor, r: torch.Tensor, threshold: int) -> torch.Tensor:
+    """``r - l + 1 <= threshold``, as ``r - l <= threshold - 1``: in int32
+    when both bounds are (``r - l`` of bounds in [0, 2^31 - 1] cannot wrap,
+    and a batch outside that range raises before any launch), else int64."""
+    wd = torch.int32 if l.dtype == r.dtype == torch.int32 else torch.int64
+    lim = torch.iinfo(wd)
+    return (r.to(wd) - l.to(wd)) <= min(max(threshold - 1, lim.min), lim.max)
+
+
+def _pow2(k: int) -> int:
+    """The launch length of ``k`` queries: the next power of two, as the
+    reference pads to bound its jit cache (the same launch shapes here)."""
+    return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
+def _padded(l, r, kp: int):
+    """Both bounds as int32 launch arrays of length ``kp``, padded with
+    (0, 0) queries; the bounds themselves where no pad or cast is needed."""
+    if l.numel() == kp and l.dtype == r.dtype == torch.int32:
+        return l.contiguous(), r.contiguous()
+    buf = torch.zeros((2, kp), dtype=torch.int32, device=l.device)
+    buf[0, : l.numel()] = l
+    buf[1, : r.numel()] = r
+    return buf[0], buf[1]
 
 
 # Each path's launches timed by CUDA events while tracing, as (path, start,
@@ -200,54 +239,78 @@ def _observe_device_times() -> None:
 def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, device):
     """Range-adaptive dispatch core: partition, per-regime launches, scatter-back.
 
-    Host-side partition of the batch by range length against ``threshold``,
-    per-regime launches through ``short_fn`` / ``long_fn`` (each
-    ``(l, r) -> (idx, val)`` on int32 tensors on ``device``), ordered exact
-    scatter-back. Empty batches return empty ``(idx, val)`` without
-    launching anything.
+    The batch is partitioned by range length against ``threshold`` on
+    ``device``, where the structure lives: each path's queries go, in batch
+    order and padded to a power of two with (0, 0) queries, through
+    ``short_fn`` / ``long_fn`` (each ``(l, r) -> (idx, val)`` on int32
+    tensors on ``device``), and the answers are gathered back into batch
+    order there. The bounds' least and greatest value and the short count,
+    which the range check and the launch shapes need, are read where the
+    bounds live, before any copy: one blocking read back of three numbers
+    for bounds on a card, none for host bounds. Bounds already on
+    ``device`` are not copied; host bounds (numpy, lists, CPU tensors) then
+    go up once, in their own integer width. Nothing else of the batch or its
+    answers crosses between host and device. Empty batches return empty
+    ``(idx, val)`` without launching anything.
 
     Bounds must be integer arrays inside the int32 index range: every
     constituent computes int32 indices, so an out-of-range bound would wrap
-    silently instead of failing loudly.
+    silently instead of failing loudly. The check happens before anything
+    launches.
 
     Traced as a ``dispatch`` span (attrs ``short``, ``long``: the split)
-    over the phases ``dispatch.bounds``, ``dispatch.partition``,
-    ``dispatch.launch`` (one per path launched) and, for mixed batches,
-    ``dispatch.scatter``. Counted always in ``obs.metrics.default_registry()``:
-    ``dispatch_batches_total`` and ``dispatch_copy_bytes_total{direction}``
+    over the phases ``dispatch.bounds`` (the length mask and the read of the
+    three numbers where the bounds live, the range check, the upload of host
+    bounds), ``dispatch.partition``
+    (the padded launch arrays), ``dispatch.launch`` (one per path launched)
+    and, for mixed batches, ``dispatch.scatter`` (the answers gathered into
+    batch order). Counted always in ``obs.metrics.default_registry()``:
+    ``dispatch_batches_total``, ``dispatch_host_syncs_total`` (the reads of
+    the three numbers: one a non-empty batch, blocking where the bounds are
+    on a card) and ``dispatch_copy_bytes_total{direction}``
     (``d2h`` / ``h2d``: the bytes of every copy between host and device).
     While ``obs.trace.tracing()`` on a CUDA device, each launch's device time
-    goes to ``dispatch_path_device_s{path}`` (``short`` / ``long``).
+    goes to ``dispatch_path_device_s{path}`` (``short`` / ``long``), observed
+    at a later call once the launch has completed.
     """
     if _device_times:
         _observe_device_times()
     tr = obs_trace.get_tracer()
     reg = default_registry()
     reg.counter("dispatch_batches_total").inc()
+    device = torch.device(device)
     with tr.span("dispatch") as span:
         with tr.span("dispatch.bounds"):
-            d2h = _device_nbytes(l, r)
-            l = to_numpy(l)
-            r = to_numpy(r)
-            if not (np.issubdtype(l.dtype, np.integer) and np.issubdtype(r.dtype, np.integer)):
+            l, r = (a if isinstance(a, torch.Tensor) else np.asarray(a) for a in (l, r))
+            if not (_is_integer(l.dtype) and _is_integer(r.dtype)):
                 raise TypeError(f"query bounds must be integer arrays, got {l.dtype} / {r.dtype}")
-            l = l.astype(np.int64)
-            r = r.astype(np.int64)
-            if l.size == 0:  # nothing to do: no phantom padded query, no launch
+            l, r = _as_tensor(l), _as_tensor(r)
+            if l.shape != r.shape:
+                raise ValueError(f"query bounds of unequal length: {l.numel()} / {r.numel()}")
+            n = l.numel()
+            if n == 0:  # nothing to do: no phantom padded query, no launch
                 return (
                     torch.zeros(0, dtype=torch.int32, device=device),
                     torch.zeros(0, dtype=out_dtype, device=device),
                 )
-            if int(l.min()) < 0 or int(r.max()) > _INT32_MAX:
-                raise ValueError(
-                    f"query bounds [{int(l.min())}, {int(r.max())}] outside the engines' "
-                    "int32 index range"
-                )
+            # The batch's one read of three numbers, where the bounds live
+            # (a blocking read back on a card, a pass over the arrays on the
+            # host; never a copy to read them): the range check and the
+            # launch shapes need them.
+            short = _short_mask(l, r, threshold)
+            lo, hi, n_short = torch.stack(
+                (l.min().to(torch.int64), r.max().to(torch.int64), short.sum())
+            ).tolist()
+            reg.counter("dispatch_host_syncs_total").inc()
+            if l.device.type != "cpu":
+                _count_copy(reg, "d2h", 3 * 8)
+            if lo < 0 or hi > _INT32_MAX:
+                raise ValueError(f"query bounds [{lo}, {hi}] outside the engines' int32 index range")
+            if l.device != device:  # host bounds go up once, in their own width
+                l, r, short = _to_device(l, device, reg), _to_device(r, device, reg), None
 
         with tr.span("dispatch.partition"):
-            short = (r - l + 1) <= threshold
-            n_short = int(short.sum())
-            n_long = int(l.size - n_short)
+            n_long = n - n_short
             cb = getattr(_split_sink, "cb", None)
             if cb is not None:
                 cb(n_short, n_long)
@@ -255,19 +318,31 @@ def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, devic
                 span.set_attr("short", n_short)
                 span.set_attr("long", n_long)
             if n_short == 0 or n_long == 0:
-                # Uniform batches skip the partition/scatter round-trip entirely.
-                parts = [("short" if n_short else "long", None, _padded(l, r, device))]
+                # Uniform batches skip the partition and the scatter.
+                parts = [("short" if n_short else "long", *_padded(l, r, _pow2(n)), n)]
             else:
-                idx = np.empty(l.shape, np.int32)
+                # One slot per query in a buffer whose two halves are the
+                # padded sub-batches: short queries fill the first in batch
+                # order, long ones the second from kp_short on.
+                if short is None:  # the bounds moved: the mask again, where they are now
+                    short = _short_mask(l, r, threshold)
+                kp_short = _pow2(n_short)
+                it = torch.int32 if kp_short + n <= _INT32_MAX else torch.int64
+                cs = torch.cumsum(short, 0, dtype=it)
+                slots = torch.arange(kp_short, kp_short + n, dtype=it, device=device)
+                pos = torch.where(short, cs - 1, slots - cs)
+                buf = torch.zeros((2, kp_short + _pow2(n_long)), dtype=torch.int32, device=device)
+                pos64 = pos.long()  # index_put_ would widen int32 indices at each call
+                buf[0, pos64] = l.to(torch.int32)
+                buf[1, pos64] = r.to(torch.int32)
                 parts = [
-                    (path, mask, _padded(l[mask], r[mask], device))
-                    for path, mask in (("short", short), ("long", ~short))
+                    ("short", buf[0, :kp_short], buf[1, :kp_short], n_short),
+                    ("long", buf[0, kp_short:], buf[1, kp_short:], n_long),
                 ]
-            h2d = sum(_device_nbytes(lp, rp) for _, _, (lp, rp, _, _) in parts)
 
-        timed = torch.device(device).type == "cuda" and obs_trace.tracing()
+        timed = device.type == "cuda" and obs_trace.tracing()
         launched = []
-        for path, mask, (lp, rp, k, _) in parts:
+        for path, lp, rp, k in parts:
             with tr.span("dispatch.launch"):
                 fn = short_fn if path == "short" else long_fn
                 if timed:
@@ -280,36 +355,20 @@ def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, devic
                         _device_times.append((path, start, end))
                 else:
                     qi, qv = fn(lp, rp)
-            launched.append((mask, qi[:k], qv[:k]))
+            launched.append((qi, qv, k))
 
         if len(launched) == 1:
-            out = launched[0][1:]
+            qi, qv, k = launched[0]
+            out = qi[:k], qv[:k]
         else:
-            # Mixed batch: bring both answer sets to the host (one copy each)
-            # and scatter there, then copy the batch's answers up.
+            # Mixed batch: both paths' padded answers side by side are laid
+            # out as the slots, so the slot map gathers them into batch order.
             with tr.span("dispatch.scatter"):
-                # The sub-batches' host arrays go only now, after the
-                # launches: freed before them, glibc hands their pages back
-                # to the system and the answers' downloads below fault in
-                # fresh ones (the copies down took about twice as long,
-                # about 9% of the rate at 2^22; PERF.md §6).
-                del parts, _
-                val = None
-                for mask, qi, qv in launched:
-                    d2h += _device_nbytes(qi, qv)
-                    qv = to_numpy(qv)
-                    if val is None:
-                        val = np.empty(l.shape, qv.dtype)
-                    idx[mask] = to_numpy(qi)
-                    val[mask] = qv
-                out = torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device)
-                h2d += _device_nbytes(*out)
-            if timed:  # the downloads waited for both launches
-                _observe_device_times()
-    if d2h:
-        reg.counter("dispatch_copy_bytes_total", direction="d2h").inc(d2h)
-    if h2d:
-        reg.counter("dispatch_copy_bytes_total", direction="h2d").inc(h2d)
+                (si, sv, _), (li, lv, _) = launched
+                out = (
+                    torch.index_select(torch.cat((si, li.to(si.dtype))), 0, pos),
+                    torch.index_select(torch.cat((sv, lv.to(sv.dtype))), 0, pos),
+                )
     return out
 
 

@@ -4,8 +4,8 @@
 range-adaptive routing: a sharded deployment that still sends every query
 to the structure of its regime.
 
-    host batch (l, r)
-      └─ partition by range length vs threshold        (numpy, host-side)
+    batch (l, r)
+      └─ partition by range length vs threshold        (torch, on s.device)
            ├─ short sub-batch -> sharded blocked path  (two-min merge)
            └─ long sub-batch  -> sharded sparse table  (owner-column min)
       └─ exact leftmost scatter-back into batch order
@@ -142,8 +142,8 @@ def build(
 def query(s: ShardedHybridRMQ, l, r) -> Tuple[torch.Tensor, torch.Tensor]:
     """Range-adaptive distributed batched RMQ -> (leftmost idx int32, value).
 
-    Host-side partition by range length, per-regime *sharded* launches,
-    ordered scatter-back — ``hybrid.dispatch_by_length`` with the sharded
+    Partition by range length on ``s.device``, per-regime *sharded*
+    launches, ordered scatter-back — ``hybrid.dispatch_by_length`` with the sharded
     constituents closed over their states. Equal to ``block_rmq.query``.
     """
     return dispatch_by_length(
