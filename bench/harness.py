@@ -196,11 +196,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, *, engine=Non
     p95 = float(np.percentile(win["batch_s"], 95))
     beyond = sum(b > p95 for b in win["batch_s"])
     b_ms = [b * 1e3 for b in win["batch_s"]]
+    med_ms = float(np.median(b_ms))
+    stalls = [(i, b) for i, b in enumerate(b_ms) if b > 10 * med_ms]
     log(
         f"[bench] window {win['seconds']:.4f} s: {win['batches']} batches of "
         f"{size}, {beyond} beyond the p95 of {p95 * 1e3:.4f} ms; batch ms "
-        f"median {float(np.median(b_ms)):.4f}, min {min(b_ms):.4f}, max {max(b_ms):.4f}, "
-        f"first three {[round(b, 4) for b in b_ms[:3]]}; peak {peak} B"
+        f"median {med_ms:.4f}, min {min(b_ms):.4f}, max {max(b_ms):.4f}, "
+        f"first three {[round(b, 4) for b in b_ms[:3]]}; {len(stalls)} beyond 10x "
+        f"the median, {sum(b for _, b in stalls) / 1e3:.4f} s in all, the first at "
+        f"batches {[i for i, _ in stalls[:8]]}; peak {peak} B"
     )
 
     # The program's state goes before the reference runs (the peak is read).

@@ -3,6 +3,8 @@ the union of its operations' intervals, on the profiler's clock."""
 
 from bench import roofline
 
+NEEDS = {"card": "the profiler records device operations on a card only"}
+
 
 def read(ctx):
     sl = ctx["slice"]

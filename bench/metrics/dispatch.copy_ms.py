@@ -3,6 +3,8 @@ of the traced slice, in ms."""
 
 from bench import roofline
 
+NEEDS = {"card": "the profiler records copies on a card only; on the CPU nothing is copied"}
+
 
 def read(ctx):
     sl = ctx["slice"]

@@ -1,6 +1,7 @@
 """Host time per batch of the traced slice in the program's
-``dispatch.partition`` spans: the batch split by range length, each path's
-bounds padded to a power of two and copied to the device, in ms."""
+``dispatch.partition`` spans: the split recorded; a uniform batch padded to
+a power of two, or a mixed batch's slot map built on the device and its
+bounds scattered into the two padded sub-batches, in ms."""
 
 from bench.spans import span_ms
 

@@ -6,6 +6,11 @@ path never launched while tracing, or the program has no such histogram."""
 
 from bench.spans import path_device_ms
 
+NEEDS = {
+    "card": "the program records its CUDA events on a card only",
+    "long": "the long path launches only for a batch with a query routed long",
+}
+
 
 def read(ctx):
     return path_device_ms("long")

@@ -5,6 +5,11 @@ time of every other compute operation (not a copy or a memset, not a
 
 from bench import roofline
 
+NEEDS = {
+    "card": "the profiler records device operations on a card only",
+    "long": "without a query routed long the long path has no work to share",
+}
+
 
 def read(ctx):
     sl = ctx["slice"]

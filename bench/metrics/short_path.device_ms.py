@@ -6,6 +6,11 @@ path never launched while tracing, or the program has no such histogram."""
 
 from bench.spans import path_device_ms
 
+NEEDS = {
+    "card": "the program records its CUDA events on a card only",
+    "short": "the short path launches only for a batch with a query routed short",
+}
+
 
 def read(ctx):
     return path_device_ms("short")

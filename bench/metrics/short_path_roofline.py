@@ -4,6 +4,12 @@ time of the port's ``csrc`` query kernels (by name)."""
 
 from bench import roofline
 
+NEEDS = {
+    "card": "the profiler records device operations on a card only",
+    "short": "without a query routed short the short path has no work to share",
+    "kernel": "the share is of the CUDA query kernels' time; a short path of torch ops has none",
+}
+
 
 def read(ctx):
     sl = ctx["slice"]

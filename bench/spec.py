@@ -10,7 +10,9 @@ Each is a file of its own under ``bench/``:
 - ``data/<data>.py``: ``make(config, seed, device)``, the array;
 - ``loops/<loop>.py``: ``drive(...)``, how batches are offered;
 - ``metrics/<metric>.py``: ``read(ctx)``, one reader per metric, end to end
-  or per layer, which returns None where it finds nothing to read.
+  or per layer, which returns None where it finds nothing to read. A reader
+  that some runs leave with nothing to read says which in ``NEEDS``: each
+  condition of ``CONDITIONS`` it needs, with a one-line reason.
 
 A new cell, traffic mix, data set or metric is a new file and a new entry in
 ``BENCHMARK.json``; no file here changes for it.
@@ -27,6 +29,7 @@ from typing import NamedTuple
 
 __all__ = [
     "BENCH",
+    "CONDITIONS",
     "ROOT",
     "Cell",
     "NAME_RE",
@@ -36,6 +39,7 @@ __all__ = [
     "load_benchmark",
     "load_file_module",
     "loop",
+    "needs",
     "reader",
     "seed_for",
 ]
@@ -46,6 +50,11 @@ ROOT = BENCH.parent
 # The character rules of names and units.
 NAME_RE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT_RE = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
+
+# What a reader may need that a run can lack: a CUDA device; in the traced
+# slice, a query that dispatch routed short, one routed long, a batch that
+# held both, a launch of one of the port's CUDA query kernels.
+CONDITIONS = ("card", "short", "long", "mixed", "kernel")
 
 
 class Cell(NamedTuple):
@@ -123,6 +132,17 @@ def _module(kind: str, name: str):
 def reader(metric: str):
     """``read(ctx)`` of ``metrics/<metric>.py``."""
     return _module("metrics", metric).read
+
+
+def needs(metric: str) -> dict:
+    """``NEEDS`` of ``metrics/<metric>.py``: each condition without which
+    the reader reads None, with the reason; {} for a reader that reads in
+    every run."""
+    got = dict(getattr(_module("metrics", metric), "NEEDS", {}))
+    unknown = sorted(set(got) - set(CONDITIONS))
+    if unknown:
+        raise ValueError(f"metric {metric!r} needs {unknown}, which are not among {CONDITIONS}")
+    return got
 
 
 def data_generator(name: str):

@@ -2,10 +2,15 @@
 keep the character rules, the query generator routes as the paper's
 regimes do, a whole run at a small size is correct, and every fault planted
 under the timed path, and the lower-precision control, come out as not
-correct. The card's own run is the ``cuda`` test at the end."""
+correct. Besides the cells of ``BENCHMARK.json``, whole runs take cells built
+here (``LOCAL``): an engine with no threshold, int32 values, and a cell that
+reports every reader of the file. A reader that a run can leave unread says
+why in its own file (``spec.needs``); the tests hold it to that. The card's
+own run is the ``cuda`` test at the end."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -27,17 +32,65 @@ N_FULL = int(FULL["n"])
 # Whole runs drive each cell under every traffic mix of the folder, also a
 # mix that no cell of BENCHMARK.json names yet.
 TRAFFICS = sorted(p.stem for p in (spec.BENCH / "traffic").glob("*.json"))
-RUNS = [(c, t) for c in CELLS for t in TRAFFICS]
+
+
+def _local(name: str, config: dict, every_reader: bool = False):
+    """A cell built here and in no entry of ``BENCHMARK.json``. It reports
+    the metrics that a new cell of the file would, or with ``every_reader``
+    every metric of the file."""
+    e2e = [m for m in BENCH["end_to_end"] if every_reader or "workloads" not in m]
+    per_layer = [m for m in BENCH["per_layer"] if every_reader or "workloads" not in m]
+    return spec.Cell(name, 1, config, spec.cell(CELLS[0], BENCH).traffic, e2e, per_layer)
+
+
+LOCAL = {
+    c.name: c
+    for c in (
+        # An engine with no threshold: the paper's GPU baseline.
+        _local("lca_f32.local", dict(FULL, engine="lca", expect={})),
+        # int32 values, from the generator ``_local_data`` gives this name.
+        _local("hybrid_i32.local", dict(FULL, dtype="int32", data="uniform_i32"), every_reader=True),
+        # Every reader, those only a card reads among them, over packed64.
+        _local(
+            "packed_hybrid_f32.local",
+            dict(FULL, engine="packed_hybrid", expect=dict(FULL["expect"], layout="packed64")),
+            every_reader=True,
+        ),
+    )
+}
+RUNS = [(c, t) for c in CELLS + list(LOCAL) for t in TRAFFICS]
 
 
 def small_cell(name: str, traffic: str | None = None):
     """Cell ``name`` (under the mix ``traffic``, if given) at a size a test
-    run holds: n = 2^12, batches of 1024, the threshold sqrt(n) = 64."""
-    c = spec.cell(name, BENCH)
+    run holds: n = 2^12, batches of 1024, and where the configuration states
+    a threshold, sqrt(n) = 64."""
+    c = LOCAL[name] if name in LOCAL else spec.cell(name, BENCH)
     cfg = dict(c.config, n=2**12, batch=1024)
-    cfg["expect"] = dict(cfg["expect"], threshold=64)
+    if "threshold" in cfg["expect"]:
+        cfg["expect"] = dict(cfg["expect"], threshold=64)
     mix = c.traffic if traffic is None else json.loads((spec.BENCH / "traffic" / f"{traffic}.json").read_text())
     return c._replace(config=cfg, traffic=dict(mix, pool=4, check_batches=3, trace_batches=3))
+
+
+def _uniform_i32(config, seed, device):
+    """int32 values drawn from the seed over the whole int32 range."""
+    gen = torch.Generator(device=device).manual_seed(spec.seed_for(seed, "data"))
+    return torch.randint(-(2**31), 2**31, (int(config["n"]),), generator=gen, device=device).to(torch.int32)
+
+
+LOCAL_DATA = {"uniform_i32": _uniform_i32}
+
+
+@pytest.fixture(autouse=True)
+def _local_data(monkeypatch):
+    """The local cells' data generators, found by name as a file's would be."""
+    find = spec.data_generator
+    monkeypatch.setattr(spec, "data_generator", lambda name: LOCAL_DATA.get(name) or find(name))
+
+
+def engine_of(name: str) -> str:
+    return small_cell(name).config["engine"]
 
 
 def run_small(name, traffic=None, engine=None, trace=False, seed=2**31 + 17):
@@ -46,6 +99,14 @@ def run_small(name, traffic=None, engine=None, trace=False, seed=2**31 + 17):
 
 
 # --- the catalogue ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (spec.BENCH / "metrics").glob("*.py")))
+def test_reader_states_what_it_needs_with_a_reason(name):
+    assert callable(spec.reader(name))
+    for condition, why in spec.needs(name).items():
+        assert condition in spec.CONDITIONS
+        assert isinstance(why, str) and 1 <= len(why) <= 200 and "\n" not in why
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -205,19 +266,82 @@ def test_busy_time_is_a_union_and_gaps_are_named_by_the_host():
 # --- whole runs on the CPU -------------------------------------------------
 
 
+def _query_kernel_launches() -> int:
+    """The port's CUDA query kernels launched so far (plain calls do not count)."""
+    from repro_torch.kernels.fused_query import fused_query, fused_query_packed
+
+    return fused_query.launches + fused_query_packed.launches
+
+
+class _Routed(harness.ProgramEngine):
+    """The program as it is, noting how dispatch routed each batch of the
+    traced slice and whether a query kernel ran there: what the readers'
+    ``NEEDS`` are held against."""
+
+    def __init__(self, name):
+        super().__init__(name)
+        self.splits = []
+        self.kernel_launches = 0
+        record = self.record_splits
+
+        @contextlib.contextmanager
+        def noting(cb):
+            def both(n_short, n_long):
+                self.splits.append((n_short, n_long))
+                cb(n_short, n_long)
+
+            before = _query_kernel_launches()
+            with record(both):
+                yield
+            self.kernel_launches += _query_kernel_launches() - before
+
+        self.record_splits = noting
+
+    def met(self, card: bool) -> set:
+        """The conditions of ``spec.CONDITIONS`` that the run met."""
+        got = {
+            "card": card,
+            "short": any(s for s, _ in self.splits),
+            "long": any(lo for _, lo in self.splits),
+            "mixed": any(s and lo for s, lo in self.splits),
+            "kernel": self.kernel_launches > 0,
+        }
+        return {k for k, v in got.items() if v}
+
+
+def readable(metrics, met: set) -> set:
+    """The names of ``metrics`` whose readers need nothing outside ``met``."""
+    return {m["name"] for m in metrics if set(spec.needs(m["name"])) <= met}
+
+
 @pytest.mark.parametrize("name,traffic", RUNS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_sound_run_is_correct_and_reports_the_cell_metrics(name, traffic, trace):
-    res = run_small(name, traffic, trace=trace)
+    engine = _Routed(engine_of(name))
+    res = run_small(name, traffic, engine=engine, trace=trace)
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device"] + (["breakdown"] if trace else []) + ["checks"]
     assert res["correct"] is True and res["failed"] == 0
     assert res["checks"] == {"idx_wrong": {"value": 0, "limit": 0}, "val_wrong": {"value": 0, "limit": 0}}
-    c = spec.cell(name, BENCH)
-    # No device on the CPU: what only a card gives is left out, never 0.
-    cpu_only = {"device_peak_gib", "dispatch.copy_ms", "short_path_roofline", "long_path_roofline", "device.idle_share"}
-    want = {m["name"] for m in (c.per_layer if trace else c.end_to_end)} - cpu_only
+    c = small_cell(name, traffic)
+    # No device on the CPU: what a reader declares it needs and the run
+    # lacked is left out, never 0; every other metric reads above 0.
+    want = readable(c.per_layer if trace else c.end_to_end, engine.met(card=False))
     assert set(res["metrics"]) == want
     assert all(v["value"] > 0 for v in res["metrics"].values())
+
+
+@pytest.mark.parametrize(
+    "name,traffic,met",
+    [
+        (CELLS[0], "large_b22", {"short", "long", "mixed"}),
+        (CELLS[0], "small_b22", {"short"}),
+        ("lca_f32.local", "large_b22", set()),
+    ],
+)
+def test_traced_routing_is_what_the_needs_are_held_against(name, traffic, met):
+    engine = _Routed(engine_of(name))
+    run_small(name, traffic, engine=engine, trace=True)
+    assert engine.met(card=False) == met
 
 
 class _Faulty(harness.ProgramEngine):
@@ -227,6 +351,11 @@ class _Faulty(harness.ProgramEngine):
         super().__init__(name)
         self.fault = fault
         self.last = None
+        self.x = None
+
+    def build(self, x, device):
+        self.x = x  # the array the harness made, whatever the engine's state
+        return super().build(x, device)
 
     def query(self, state, l, r):
         if self.fault == "half":  # half of the batch answered, and sent twice
@@ -242,19 +371,21 @@ class _Faulty(harness.ProgramEngine):
             idx[7] += 1 if int(idx[7]) == 0 else -1
             return idx, val
         if self.fault == "rightmost":  # ties broken to the right
-            x = state.x.numpy()
-            ln, rn = l.numpy(), r.numpy()
+            x = self.x.cpu().numpy()
+            ln, rn = l.cpu().numpy(), r.cpu().numpy()
             right = [int(a + np.flatnonzero(x[a : b + 1] == x[a : b + 1].min())[-1]) for a, b in zip(ln, rn)]
-            idx = torch.tensor(right, dtype=torch.int32)
-            return idx, state.x[idx]
+            idx = torch.tensor(right, dtype=torch.int32, device=self.x.device)
+            return idx, self.x[idx]
         raise ValueError(self.fault)
 
 
 def _tied(config, seed, device):
-    """Values in eighths: every range of more than a few cells ties."""
+    """Eight values in the configuration's dtype, so that every range of more
+    than a few cells ties: eighths for float32, 0 to 7 for int32."""
     gen = torch.Generator(device=device).manual_seed(spec.seed_for(seed, "data"))
     n = int(config["n"])
-    return torch.randint(0, 8, (n,), generator=gen, device=device).to(torch.float32) / 8
+    v = torch.randint(0, 8, (n,), generator=gen, device=device)
+    return v.to(torch.int32) if config["dtype"] == "int32" else v.to(torch.float32) / 8
 
 
 FAULTS = [(c, t, f) for c, t in RUNS for f in ("half", "stale", "altered", "rightmost")]
@@ -264,14 +395,14 @@ FAULTS = [(c, t, f) for c, t in RUNS for f in ("half", "stale", "altered", "righ
 def test_fault_under_the_timed_path_is_not_correct(name, traffic, fault, monkeypatch):
     if fault == "rightmost":  # the float32 draws tie at full size (2^24 values in 10^8 cells)
         monkeypatch.setattr(spec, "data_generator", lambda name: _tied)
-    res = run_small(name, traffic, engine=_Faulty(spec.cell(name, BENCH).config["engine"], fault))
+    res = run_small(name, traffic, engine=_Faulty(engine_of(name), fault))
     assert res["correct"] is False
     assert res["checks"]["idx_wrong"]["value"] > 0 or res["checks"]["val_wrong"]["value"] > 0
 
 
 @pytest.mark.parametrize("name,traffic", RUNS)
 def test_stale_answers_are_caught_in_a_one_batch_window(name, traffic):
-    engine = _Faulty(spec.cell(name, BENCH).config["engine"], "stale")
+    engine = _Faulty(engine_of(name), "stale")
     c = small_cell(name, traffic)
     res = harness.run_cell(c, 2**31 + 19, 0.0, False, "cpu", engine=engine, log=lambda m: None)
     assert res["attempted"] == 1024  # the window held one batch
@@ -371,6 +502,13 @@ def cuda_device():
 @pytest.mark.parametrize("name,traffic", RUNS)
 def test_small_run_on_the_card_is_correct(cuda_device, name, traffic):
     c = small_cell(name, traffic)
-    res = harness.run_cell(c, 2**31 + 3, 0.2, True, cuda_device, log=lambda m: None)
+    engine = _Routed(c.config["engine"])
+    res = harness.run_cell(c, 2**31 + 3, 0.2, True, cuda_device, engine=engine, log=lambda m: None)
     assert res["correct"] is True
     assert res["device"]["busy_s"] > 0
+    # Each reader that has all it needs reads; one that lacks something may
+    # still read what earlier runs of this process left in the program's
+    # registry, which a run of the benchmark, a process of its own, never sees.
+    want = readable(c.per_layer, engine.met(card=True))
+    assert want <= set(res["metrics"])
+    assert all(res["metrics"][m]["value"] >= 0 for m in want)
