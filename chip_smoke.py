@@ -20,7 +20,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    height 24 (n = 2^26 - 3, depths 0..24: the +-1 RMQ that LCA queries
    reduce to, and a key span that packed32 holds, 25 << 26 < 2^31), both
    fetches, equal to each other; quantized at n = 2^20 and 2^26, float32
-   and int32. Then ``rmq_partials`` and ``lane_partials`` vs plain at
+   and int32; packed64 at n = 2^26, float32 and int32, both fetches, equal
+   to each other. Then ``rmq_partials`` and ``lane_partials`` vs plain at
    n = 2^26 float32 and int32, ``ops.query(fused=False)`` equal to
    ``ops.query`` and ``ops.lane_query`` equal to ``core.lane_rmq.query``,
    both checked against the oracle on a sample. B in {4096, 4099}, bit for
@@ -29,8 +30,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (about half inside one lane block). Then every kernel against its plain
    version on ``kernels.edge_batch`` (ranges cut at 4j, 4j+3 and mid-piece,
    ties across rows, lanes and pieces, zeros of both signs, maxval minima,
-   quantized bucket collisions; packed32 on its small-span values, int32
-   and float32) at bs in {128, 256}, B in {1, 4099}, tiles 1 and 8, and
+   quantized bucket collisions; packed32 on its small-span values, packed64
+   on the batch's own, int32 and float32) at bs in {128, 256}, B in {1, 4099}, tiles 1 and 8, and
    ``lane_partials`` also on a batch whose queries all lie inside single
    lane blocks (a quarter of them in the maxval blocks). Every query of
    those batches whose range holds only maxval is also held to the numpy
@@ -42,12 +43,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    resident: 2048 values), hybrid async at n = 2^26 with small and medium
    ranges; packed_hybrid --packed quantized at n = 2^26 oneshot and async;
    packed_hybrid at n = 2^26 with the layout left to the data (float32:
-   packed64, which has no kernel). Through the library: packed_hybrid
+   packed64, on its kernel). Through the library: packed_hybrid
    packed32 on the Euler array, at n = 2^20 and at the resident ceiling, and
    ``ops.query(fused=False)`` and ``ops.lane_query`` at n = 2^26. Every
    answer is checked against the numpy oracle; the launch counts are set to
    0 just before each run and read just after, and each run must have
-   launched its kernels (the packed64 run: none of them). Then the
+   launched its kernels. Then the
    maxval-only inputs: [0, inf, inf] and [5, INT32_MAX, INT32_MAX] through
    block128, block256, lane, fused128, fused128_dma, hybrid (its sqrt(n)
    threshold sends them to the kernel) and exhaustive, and arrays of
@@ -447,9 +448,10 @@ def _fq_bytes(l, r, bs: int, itemsize: int, fetch: str) -> int:
 
 
 def _packed_bytes(l, r, bs: int, itemsize: int, layout: str) -> int:
-    """Bytes one fused_query_packed call must move: the words (packed32) or
-    values (quantized) of each partial range, the interior cells (two words;
-    quantized also their two block minima), the bounds and the outputs."""
+    """Bytes one fused_query_packed call must move: the words (packed32: 4
+    bytes, packed64: 8) or values (quantized) of each partial range, the
+    interior cells (two words; quantized also their two block minima), the
+    bounds and the outputs."""
     import numpy as np
 
     l = l.astype(np.int64)
@@ -458,8 +460,8 @@ def _packed_bytes(l, r, bs: int, itemsize: int, layout: str) -> int:
     ls, re = l - bl * bs, r - br * bs
     le = np.where(bl == br, re, bs - 1)
     elems = (le - ls + 1) + np.where(br > bl, re + 1, 0)
-    word = 4 if layout == "packed32" else itemsize
-    cell = 2 * 4 + (2 * itemsize if layout == "quantized" else 0)
+    word = {"packed32": 4, "packed64": 8}.get(layout, itemsize)
+    cell = 2 * (8 if layout == "packed64" else 4) + (2 * itemsize if layout == "quantized" else 0)
     hasint = (br - bl) >= 2
     return int(elems.sum() * word + hasint.sum() * cell + l.size * (8 + 4 + itemsize))
 
@@ -2031,9 +2033,17 @@ def _main() -> int:
         ("quantized", "i32", N_RESIDENT, None),
         ("quantized", "f32", N_MAIN, "resident"),
         ("quantized", "i32", N_MAIN, None),
+        ("packed64", "f32", N_MAIN, "resident"),
+        ("packed64", "i32", N_MAIN, None),
     ]
     # The quantized body is fused_query_kernel over the QuantizedCells interior.
-    kname = {"packed32": "fused_query_packed32_kernel", "quantized": "QuantizedCells"}
+    kname = {
+        "packed32": "fused_query_packed32_kernel",
+        "packed64": "fused_query_packed64_kernel",
+        "quantized": "QuantizedCells",
+    }
+    # The word layouts read both fetches' names (one body each).
+    fetches = {"packed32": ("resident", "dma"), "packed64": ("resident", "dma"), "quantized": ("resident",)}
     torch.cuda.reset_peak_memory_stats()
     for layout, kind, n, timed in packed_cases:
         if kind == "f32":
@@ -2053,7 +2063,7 @@ def _main() -> int:
             kw = dict(spec=spec, bmin_val=s.bmin_val)
             pi, pv = fused_query_packed_plain(*args, **kw)
             outs = {}
-            for fetch in ("resident", "dma") if layout == "packed32" else ("resident",):
+            for fetch in fetches[layout]:
                 ki, kv = fused_query_packed(*args, **kw, fetch=fetch)
                 torch.cuda.synchronize()
                 _require(
@@ -2063,8 +2073,8 @@ def _main() -> int:
                 outs[fetch] = (ki, kv)
                 if b != 4096 or fetch != timed:
                     continue
-                # The two packed32 fetches launch one body (checked equal
-                # below): the row times the fetch the size selects.
+                # The two fetches of a word layout launch one body (checked
+                # equal below): the row times the fetch the size selects.
                 call = lambda: fused_query_packed(*args, **kw, fetch=fetch)
                 t = kernel_times(torch, call, kname[layout], flush)
                 if layout == "packed32":  # the floor: one query alone
@@ -2076,7 +2086,7 @@ def _main() -> int:
                         f"[fused_query_packed] {layout} {fetch} {kind} n={n} B=1: kernel "
                         f"{t1['ms']} ms on the device, {t1['cold_ms']} ms with L2 flushed"
                     )
-                name = f"fused_query_packed[{layout},{fetch}]" if layout == "packed32" else "fused_query_packed[quantized]"
+                name = f"fused_query_packed[{layout},{fetch}]" if layout == "packed32" else f"fused_query_packed[{layout}]"
                 plain_ms = _time_ms(torch, lambda: fused_query_packed_plain(*args, **kw))
                 bound_ms = _packed_bytes(l, r, 128, 4, layout) / HBM_BYTES_PER_S * 1e3
                 err = _max_abs_err(torch, kv, pv)
@@ -2089,7 +2099,7 @@ def _main() -> int:
                 kernels[name] = dict(
                     **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
                 )
-            if layout == "packed32":
+            if layout != "quantized":
                 _require(
                     torch.equal(outs["resident"][0], outs["dma"][0])
                     and same_bits(outs["resident"][1], outs["dma"][1]),
@@ -2225,20 +2235,21 @@ def _main() -> int:
                 packed = {
                     "quantized": (edge_batch(bs, dtype, b, finite=True)[0], l, r),
                     "packed32": (xp, lp, rp),
+                    "packed64": (x, l, r),
                 }
                 for layout, (xq, lq, rq) in packed.items():
                     lq, rq = torch.from_numpy(lq).to(dev), torch.from_numpy(rq).to(dev)
                     q, spec = ops.build_packed(xq, bs, layout=layout, device=dev)
                     kw = dict(spec=spec, bmin_val=q.bmin_val)
                     want = fused_query_packed_plain(q.blocks, q.stw, lq, rq, **kw)
-                    for fetch in ("resident", "dma") if layout == "packed32" else ("resident",):
+                    for fetch in fetches[layout]:
                         for tile in (1, 8):
                             got = fused_query_packed(q.blocks, q.stw, lq, rq, **kw, fetch=fetch, tile=tile)
                             _require(
                                 all(same_bits(g, w) for g, w in zip(got, want)),
                                 f"fused_query_packed {layout} {fetch} tile={tile} != plain on {what}",
                             )
-                            if layout == "quantized":  # packed32's small-span values hold no maxval
+                            if layout != "packed32":  # packed32's small-span values hold no maxval
                                 n_max += on_maxval_only(got[0], xq, lq, rq, f"quantized tile={tile} on {what}")
                 ls_ = lane_rmq.build(x, device=dev)
                 planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)
@@ -2275,6 +2286,7 @@ def _main() -> int:
         "fused_query_packed[packed32,resident]": lambda: fused_query_packed.launches_by_body["packed32[resident]"],
         "fused_query_packed[packed32,dma]": lambda: fused_query_packed.launches_by_body["packed32[dma]"],
         "fused_query_packed[quantized]": lambda: fused_query_packed.launches_by_body["quantized"],
+        "fused_query_packed[packed64]": lambda: fused_query_packed.launches_by_body["packed64"],
         "rmq_partials": lambda: rmq_partials.launches,
         "lane_partials": lambda: lane_partials.launches,
     }
@@ -2344,10 +2356,10 @@ def _main() -> int:
         text = buf.getvalue()
         print(text, end="")
         _require("layout packed64" in text, "packed_hybrid on float32 data did not resolve to packed64")
-        print("[served] packed_hybrid --packed auto on float32 n=2^26 resolved to layout packed64 (no kernel)")
+        print("[served] packed_hybrid --packed auto on float32 n=2^26 resolved to layout packed64")
 
     torch.cuda.reset_peak_memory_stats()
-    drive("packed_hybrid auto oneshot 2^26", auto_layout, none=True)
+    drive("packed_hybrid auto oneshot 2^26", auto_layout, ("fused_query_packed[packed64]",))
     print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (packed_hybrid packed64, n={N_MAIN})")
 
     def packed32_batches(x, label):
@@ -2926,6 +2938,8 @@ def _main() -> int:
         "fused_query_packed[packed32,resident]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:599"),
         "fused_query_packed[packed32,dma]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:599"),
         "fused_query_packed[quantized]": ("src/repro_torch/csrc/fused_query_packed.cu", f"{fq}:561"),
+        # No Pallas body: the reference serves packed64 with its jnp query.
+        "fused_query_packed[packed64]": ("src/repro_torch/csrc/fused_query_packed.cu", "src/repro/core/block_rmq.py:291"),
         "rmq_partials": ("src/repro_torch/csrc/rmq_partials.cu", "src/repro/kernels/rmq_query.py:107"),
         "lane_partials": ("src/repro_torch/csrc/lane_partials.cu", "src/repro/kernels/lane_query.py:104"),
     }
@@ -2949,7 +2963,7 @@ def _main() -> int:
                 "library_ms": m["library_ms"],
             }
         )
-    _require(len(rows) == 8, f"a kernel has no measurement ({sorted(kernels)})")
+    _require(len(rows) == 9, f"a kernel has no measurement ({sorted(kernels)})")
     print(json.dumps({"kernels": rows}))
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s (imports and kernel build included)")
     print(card)

@@ -425,8 +425,9 @@ def _plan_fused(n, *, device, block_size=None, kernel_config=None, packed=None):
         layout = cfg.layout
     if layout == "packed64":
         raise ValueError(
-            "packed64 words are int64 and have no kernel; use sparse_table/block/"
-            "hybrid with packed=, or packed32/quantized for the fused kernels"
+            "packed64 has no fused engine, as in the reference; use sparse_table/block/"
+            "hybrid with packed= (the hybrid's short path runs its kernel), or "
+            "packed32/quantized for the fused engines"
         )
 
     def build_fn(x):
@@ -480,12 +481,11 @@ def _plan_hybrid(
             # One spec for both tiers, so words of both compare in one order.
             spec = packing.spec_for(x, n, pack_layout)
             state["spec"] = spec
-            if use_kernels and spec.layout in ("packed32", "quantized"):
+            if use_kernels:
                 from repro_torch.kernels import ops
 
                 state["blocked"], _ = ops.build_packed(x, block_size, spec=spec, device=device)
             else:
-                # packed64 (int64 words) has no kernel: plain packed structures serve it.
                 state["blocked"], _ = block_rmq.build_packed(x, block_size, spec=spec, device=device)
             state["st"], _ = sparse_table.build_packed(x, spec=spec)
             return state

@@ -9,8 +9,8 @@ table over the raw array, and the two result sets are gathered back into
 batch order there. Results equal
 ``block_rmq.query`` bit for bit. With ``packed=`` both tiers hold packed
 (value, index) words (``core.packing``); the short path then runs the
-``fused_query_packed`` kernel for packed32 and quantized, and the plain
-packed query for packed64, which has no kernel. ``calibrate`` measures the
+``fused_query_packed`` kernel for every layout (packed64, packed32,
+quantized). ``calibrate`` measures the
 crossover of the two paths on the structure's device (the ``"calibrated"``
 threshold policy, cached by ``core.calib_cache``). Port of
 ``repro/core/hybrid.py``.
@@ -57,7 +57,7 @@ class HybridRMQ(NamedTuple):
     st: object  # SparseTable | PackedSparseTable over the raw array
     x: torch.Tensor  # raw values (answers value lookups for the long path)
     threshold: int  # range lengths <= threshold go to the blocked path
-    use_kernels: bool  # short path: fused CUDA kernel vs plain block_rmq
+    use_kernels: bool  # short path: a CUDA kernel serves it (else plain block_rmq)
     short_fn: object  # (l, r) -> (idx, val), structure closed over
     long_fn: object  # (l, r) -> (idx, val)
     spec: object = None  # the PackSpec both tiers were packed with; None unpacked
@@ -107,9 +107,11 @@ def assemble(
     """A ``HybridRMQ`` over built parts: the path closures bound to them.
 
     ``spec`` is the ``PackSpec`` of packed parts (None for unpacked ones).
+    With ``use_kernels`` a CUDA kernel serves the short path, for unpacked
+    parts and every packed layout.
     """
     if spec is not None:
-        if use_kernels and spec.layout in ("packed32", "quantized"):
+        if use_kernels:
             from repro_torch.kernels import ops
 
             short_fn = lambda l, r: ops.query_packed(blocked, spec, l, r, config=kernel_config)
@@ -267,8 +269,11 @@ def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, devic
     batch order). Counted always in ``obs.metrics.default_registry()``:
     ``dispatch_batches_total``, ``dispatch_host_syncs_total`` (the reads of
     the three numbers: one a non-empty batch, blocking where the bounds are
-    on a card) and ``dispatch_copy_bytes_total{direction}``
-    (``d2h`` / ``h2d``: the bytes of every copy between host and device).
+    on a card), ``dispatch_copy_bytes_total{direction}`` (``d2h`` /
+    ``h2d``: the bytes of every copy between host and device) and
+    ``dispatch_launched_queries_total{path}`` (the queries launched on each
+    path, the (0, 0) pads included: what the kernels' own
+    ``query_kernel_queries_total`` is held against).
     While ``obs.trace.tracing()`` on a CUDA device, each launch's device time
     goes to ``dispatch_path_device_s{path}`` (``short`` / ``long``), observed
     at a later call once the launch has completed.
@@ -343,6 +348,7 @@ def dispatch_by_length(l, r, threshold: int, short_fn, long_fn, out_dtype, devic
         timed = device.type == "cuda" and obs_trace.tracing()
         launched = []
         for path, lp, rp, k in parts:
+            reg.counter("dispatch_launched_queries_total", path=path).inc(lp.numel())
             with tr.span("dispatch.launch"):
                 fn = short_fn if path == "short" else long_fn
                 if timed:

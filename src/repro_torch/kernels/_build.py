@@ -53,6 +53,8 @@ _SIGNATURES = {
     "repro_fused_query_i32": (_P,) * 10 + (_I,) * 5 + (_P,),
     "repro_fused_query_packed32_f32": (_P,) * 6 + (_I,) * 7 + (_P,),
     "repro_fused_query_packed32_i32": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "repro_fused_query_packed64_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "repro_fused_query_packed64_i32": (_P,) * 6 + (_I,) * 4 + (_P,),
     "repro_fused_query_quantized_f32": (_P,) * 7 + (_I,) * 5 + (_P,),
     "repro_fused_query_quantized_i32": (_P,) * 7 + (_I,) * 5 + (_P,),
     "repro_rmq_partials_f32": (_P,) * 8 + (_I,) * 4 + (_P,),

@@ -19,8 +19,13 @@ preferring lo on value ties is the leftmost rule ``_pick_left`` applies.
 
 ``fused_query_packed`` does the same over the packed word structures of
 ``core.packing`` (``csrc/fused_query_packed.cu``, replacing the reference's
-``fused_query_packed``): packed32 with both fetches, and quantized. The
-source notes of the kernels give their bounds and designs.
+``fused_query_packed``): packed32 with both fetches, and quantized; and
+packed64, which the reference serves with jnp ops only. The source notes of
+the kernels give their bounds and designs.
+
+Each launch adds its batch size to the counter
+``query_kernel_queries_total{kernel, layout}`` of
+``obs.metrics.default_registry()`` (plain calls add nothing).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro_torch._device import as_index
 from repro_torch.core import block_rmq, packing
 from repro_torch.core.block_rmq import maxval, signed_min, split
 from repro_torch.core.sparse_table import exact_log2
+from repro_torch.obs.metrics import default_registry
 
 from . import _build
 from .rmq_query import rmq_partials_plain
@@ -54,11 +60,15 @@ _DTYPES = {torch.float32: "f32", torch.int32: "i32"}
 _ENTRY = {dt: f"repro_fused_query_{k}" for dt, k in _DTYPES.items()}
 _PACKED_ENTRY = {
     (layout, dt): f"repro_fused_query_{layout}_{k}"
-    for layout in ("packed32", "quantized")
+    for layout in packing.PACKED_LAYOUTS
     for dt, k in _DTYPES.items()
 }
 _count_lock = threading.Lock()
 _warned_materialize = False
+
+
+def _count_queries(kernel: str, layout: str, b: int) -> None:
+    default_registry().counter("query_kernel_queries_total", kernel=kernel, layout=layout).inc(b)
 
 
 def interior_tables(bmin_val: torch.Tensor, bmin_gidx: torch.Tensor, st_idx: torch.Tensor):
@@ -214,6 +224,7 @@ def fused_query(
     with _count_lock:
         fused_query.launches += 1
         fused_query.launches_by_fetch[fetch] += 1
+    _count_queries("fused_query", "unpacked", b)
     return idx, val
 
 
@@ -225,21 +236,22 @@ fused_query.launches_by_fetch = {"resident": 0, "dma": 0}
 
 # --- packed megakernel ------------------------------------------------------
 #
-# packed32: every table the kernel touches is one plane of int32 words, so
-# each partial is a masked word min, the interior is min(stw[k, ilo],
-# stw[k, bpos]) and the answer the min of three words. quantized: raw-value
-# partials, (bucket, exact argmin) interior words whose bucket ties fall back
-# to the exact values bmin_val[idx // bs]; resident only. packed64 (int64
-# words) has no kernel, as in the reference: it serves through
-# ``core.block_rmq.query_packed``.
+# packed32 and packed64: every table the kernel touches is one plane of
+# words (int32, int64), so each partial is a masked word min, the interior
+# is min(stw[k, ilo], stw[k, bpos]) and the answer the min of three words.
+# quantized: raw-value partials, (bucket, exact argmin) interior words whose
+# bucket ties fall back to the exact values bmin_val[idx // bs]; resident
+# only. The reference has no packed64 kernel (its jnp query serves it); the
+# port's answers equal ``core.block_rmq.query_packed``'s bit for bit.
 
 
 def fused_query_packed_plain(blocks, stw, l, r, *, spec, bmin_val=None):
     """The reference kernels' arithmetic (``_kernel_packed`` and
     ``_kernel_quantized``, fused_query.py:351-477) in PyTorch, the whole
-    batch at once. packed32 is the min word of ``block_rmq.query_words``
-    (both fetches read the same two cells), unpacked."""
-    if spec.layout == "packed32":
+    batch at once. packed32 and packed64 are the min word of
+    ``block_rmq.query_words`` (both fetches read the same two cells),
+    unpacked."""
+    if spec.layout in ("packed32", "packed64"):
         w = block_rmq.query_words(spec, blocks, stw, l, r)
         return packing.unpack_idx(spec, w), packing.unpack_val(spec, w)
 
@@ -260,8 +272,8 @@ def fused_query_packed_plain(blocks, stw, l, r, *, spec, bmin_val=None):
 
 
 def fused_query_packed(
-    blocks: torch.Tensor,  # (nb, bs): packed32 words | raw values (quantized)
-    stw: torch.Tensor,  # (K, nb) int32 packed doubling table over block minima
+    blocks: torch.Tensor,  # (nb, bs): packed words | raw values (quantized)
+    stw: torch.Tensor,  # (K, nb) packed doubling table over block minima
     l,
     r,
     *,
@@ -273,18 +285,15 @@ def fused_query_packed(
     """Packed fused blocked RMQ. Returns (idx (B,) int32, value (B,)).
 
     One kernel launch per batch on the card over single-plane structures:
-    packed32 (both fetch strategies, which read the same two cells and
-    launch one body) and quantized (resident only). ``blocks`` rows are read
-    in 16-byte pieces: a multiple of 128 values from a 16-byte aligned base.
-    packed64 raises, as in the reference.
+    packed32 and packed64 (int32 and int64 words; both fetch strategies,
+    which read the same two cells and launch one body) and quantized
+    (resident only). ``blocks`` rows are read in 16-byte pieces: a multiple
+    of 128 values from a 16-byte aligned base.
     """
-    if spec.layout == "packed64":
+    if spec.layout not in packing.PACKED_LAYOUTS:
         raise ValueError(
-            "packed64 words are int64 and have no kernel path; serve packed64 "
-            "through core.block_rmq.query_packed"
+            f"fused_query_packed wants one of {'|'.join(packing.PACKED_LAYOUTS)}, got {spec.layout!r}"
         )
-    if spec.layout not in ("packed32", "quantized"):
-        raise ValueError(f"fused_query_packed wants packed32|quantized, got {spec.layout!r}")
     nb, bs = blocks.shape
     fetch = resolve_fetch(fetch, nb)
     if spec.layout == "quantized":
@@ -306,10 +315,10 @@ def fused_query_packed(
     if val_dtype not in _DTYPES:
         raise TypeError(f"fused_query_packed takes float32 or int32 values, got {spec.dtype}")
     what = "fused_query_packed"
-    _check_leaf("stw", stw, torch.int32, dev, 2, what)
+    _check_leaf("stw", stw, packing.word_dtype(spec), dev, 2, what)
     if stw.shape[1] != nb:
         raise ValueError(f"{what}: stw must have nb = {nb} columns, got {tuple(stw.shape)}")
-    word_dtype = torch.int32 if spec.layout == "packed32" else val_dtype
+    word_dtype = val_dtype if spec.layout == "quantized" else packing.word_dtype(spec)
     _check_leaf("blocks", blocks, word_dtype, dev, 2, what)
     _build.check_pieces(blocks, "blocks", what)
     if spec.layout == "quantized":
@@ -330,6 +339,12 @@ def fused_query_packed(
             blocks.data_ptr(), stw.data_ptr(), l.data_ptr(), r.data_ptr(), idx.data_ptr(),
             val.data_ptr(), b, nb, bs, spec.idx_bits, spec.kmin, int(fetch == "dma"), tile,
         )
+    elif spec.layout == "packed64":
+        body = "packed64"
+        args = (
+            blocks.data_ptr(), stw.data_ptr(), l.data_ptr(), r.data_ptr(), idx.data_ptr(),
+            val.data_ptr(), b, nb, bs, tile,
+        )
     else:
         body = "quantized"
         args = (
@@ -340,10 +355,16 @@ def fused_query_packed(
     with _count_lock:
         fused_query_packed.launches += 1
         fused_query_packed.launches_by_body[body] += 1
+    _count_queries("fused_query_packed", spec.layout, b)
     return idx, val
 
 
 # Kernel launches since the last reset (plain calls do not count), in all and
 # per body and fetch.
 fused_query_packed.launches = 0
-fused_query_packed.launches_by_body = {"packed32[resident]": 0, "packed32[dma]": 0, "quantized": 0}
+fused_query_packed.launches_by_body = {
+    "packed32[resident]": 0,
+    "packed32[dma]": 0,
+    "packed64": 0,
+    "quantized": 0,
+}

@@ -77,7 +77,7 @@ DEFAULT_TUNE_BATCH = 4096
 
 # The packed-structure layout axis. ``candidate_configs`` sweeps only
 # "unpacked" unless the caller opts the axis in (``layouts=TUNE_LAYOUTS`` or
-# a subset): packed64 words are int64 and have no kernel; the quantized
+# a subset): packed64 has no fused engine, as in the reference; the quantized
 # fallback hop reads its resident plane, so it has no dma strategy; and
 # ``sweep`` skips packed32 where the sweep data's key span does not fit.
 TUNE_LAYOUTS = ("unpacked", "packed32", "quantized", "packed64")
@@ -118,7 +118,8 @@ def candidate_configs(n: int, block_size: int | None = None, *, layouts=None):
     are excluded. The default config's resolution is always a member, so
     the tuned winner can never be slower than the default on the sweep's
     own measurements. ``layouts`` opts the packed-structure axis in;
-    packed64 and quantized-dma candidates are never built (no kernel).
+    packed64 (no fused engine) and quantized-dma (no such body) candidates
+    are never built.
     """
     sizes = (block_size,) if block_size is not None else TUNE_BLOCK_SIZES
     if layouts is None:
@@ -128,7 +129,7 @@ def candidate_configs(n: int, block_size: int | None = None, *, layouts=None):
         if fetch == "resident" and -(-n // bs) > RESIDENT_NB_CEILING:
             continue
         if lay == "packed64":
-            continue  # int64 words: no kernel path
+            continue  # no fused engine takes packed64
         if lay == "quantized" and fetch == "dma":
             continue  # fallback hop needs the resident exact-minima plane
         out.append(KernelConfig(tile=tile, fetch=fetch, block_size=bs, layout=lay))

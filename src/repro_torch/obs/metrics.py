@@ -277,7 +277,9 @@ _DEFAULT_LOCK = threading.Lock()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-global registry (``core.hybrid``'s dispatch counters live here)."""
+    """The process-global registry: ``core.hybrid``'s dispatch counters and
+    the query kernels' ``query_kernel_queries_total{kernel, layout}`` (each
+    launch's batch size, ``kernels.fused_query``) live here."""
     return _DEFAULT
 
 

@@ -197,6 +197,51 @@ def test_packed_and_partial_kernels_match_plain_on_card(cuda, dtype):
     assert torch.equal(idx, lane_rmq.query(s, lt, rt)[0])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+def test_packed64_kernel_matches_plain_at_the_cell_size_on_card(cuda, dtype):
+    """The packed64 body of ``fused_query_packed`` against
+    ``block_rmq.query_packed``, index and value bit for bit, at the
+    benchmark cell's n = 10^8 with a batch of 2^22 whose lengths follow
+    ``small_b26``'s law (LogNormal(ln n^0.3, 0.3), median about 251);
+    float32 uniform in [0, 1) (ties from its 2^24 grid) and int32 in
+    [-1000, 1000) (ties everywhere). Each launch adds its batch to
+    ``query_kernel_queries_total``; the packed64 hybrid's short path
+    launches the kernel and says so in ``use_kernels``."""
+    from repro_torch.core import build as build_mod
+    from repro_torch.obs.metrics import default_registry
+
+    n, q = 10**8, 1 << 22
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    if dtype == "f32":
+        x = torch.rand(n, generator=gen, device=cuda)
+    else:
+        x = torch.randint(-1000, 1000, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    z = torch.randn(q, generator=gen, device=cuda, dtype=torch.float64)
+    length = torch.clamp(torch.exp(np.log(n**0.3) + 0.3 * z), 1, n).to(torch.int64)
+    span = n - length + 1
+    u = torch.rand(q, generator=gen, device=cuda, dtype=torch.float64)
+    l = torch.minimum((u * span).to(torch.int64), span - 1)
+    lt, rt = l.to(torch.int32), (l + length - 1).to(torch.int32)
+    s, spec = ops.build_packed(x, 128, layout="packed64", device=cuda)
+    assert spec.layout == "packed64" and s.blocks.dtype == s.stw.dtype == torch.int64
+    counter = default_registry().counter("query_kernel_queries_total", kernel="fused_query_packed", layout="packed64")
+    before = counter.value
+    got = fused_query_packed(s.blocks, s.stw, lt, rt, spec=spec)
+    assert counter.value - before == q
+    want = block_rmq.query_packed(s, spec, lt, rt)
+    _same_bits(got, want)
+    del s, want, got
+
+    xs = x[: 1 << 20]
+    h = build_mod.build("hybrid", xs, device=cuda, packed="packed64")
+    assert h.use_kernels is True and h.spec.layout == "packed64"
+    keep = rt < xs.shape[0]
+    launches = fused_query_packed.launches_by_body["packed64"]
+    idx, val = hybrid.query(h, lt[keep], rt[keep])
+    assert fused_query_packed.launches_by_body["packed64"] > launches
+    _same_bits((idx, val), block_rmq.query_packed(h.blocked, h.spec, lt[keep], rt[keep]))
+
+
 def test_packed_serve_cli_on_card(cuda, capsys):
     before = fused_query_packed.launches_by_body["quantized"]
     serve.main(
@@ -213,12 +258,13 @@ def test_packed_serve_cli_on_card(cuda, capsys):
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
     """The kernels that read rows in 16-byte pieces (fused_query both
-    fetches, fused_query_packed quantized and packed32 both fetches,
+    fetches, fused_query_packed quantized, packed32 and packed64 (against
+    ``block_rmq.query_packed``) both fetches,
     rmq_partials, lane_partials) against their plain versions on
     ``edge_batch``, the inputs tests/test_torch_kernels.py holds to the
     reference, and lane_partials also on a batch whose queries all lie
     inside single lane blocks; tiles 1 and 8, bit for bit. A misaligned
-    x_blocks, packed32 blocks or lane xs raises."""
+    x_blocks, packed32 or packed64 blocks or lane xs raises."""
     x, l, r = edge_batch(bs, dtype, b)
     lt, rt = torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda)
     s = ops.build(x, bs, device=cuda)
@@ -255,6 +301,16 @@ def test_edge_batch_kernels_match_plain_on_card(cuda, dtype, bs, b):
     shifted = torch.empty(p.blocks.numel() + 1, dtype=torch.int32, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         fused_query_packed(shifted.view(p.blocks.shape), p.stw, lpt, rpt, spec=spec)
+
+    w, spec = ops.build_packed(x, bs, layout="packed64", device=cuda)
+    want = block_rmq.query_packed(w, spec, lt, rt)
+    for fetch in ("resident", "dma"):
+        for tile in (1, 8):
+            got = fused_query_packed(w.blocks, w.stw, lt, rt, spec=spec, fetch=fetch, tile=tile)
+            _same_bits(got, want)
+    shifted = torch.empty(w.blocks.numel() + 1, dtype=torch.int64, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_query_packed(shifted.view(w.blocks.shape), w.stw, lt, rt, spec=spec)
 
     ls_ = lane_rmq.build(x, device=cuda)
     planes = (ls_.xs, ls_.suff_val, ls_.suff_idx, ls_.pref_val, ls_.pref_idx)

@@ -329,9 +329,11 @@ def test_fused_query_packed_matches_pallas(layout, fetch, dtype):
 
 def test_fused_query_packed_checks_its_inputs():
     x = np.arange(300, dtype=np.int32)
-    s64, spec64 = block_rmq.build_packed(x, 128, layout="packed64", device="cpu")
-    with pytest.raises(ValueError, match="packed64"):
-        fused_query_packed(s64.blocks, s64.stw, [0], [5], spec=spec64)
+    s64, spec64 = ops.build_packed(x, 128, layout="packed64", device="cpu")
+    got = fused_query_packed(s64.blocks, s64.stw, [0, 7], [5, 290], spec=spec64)
+    lt, rt = torch.tensor([0, 7], dtype=torch.int32), torch.tensor([5, 290], dtype=torch.int32)
+    _assert_bits(got, fused_query_packed_plain(s64.blocks, s64.stw, lt, rt, spec=spec64))
+    assert got[0].tolist() == [0, 7] and got[1].dtype == torch.int32
     sq, specq = ops.build_packed(x, 128, layout="quantized", device="cpu")
     with pytest.raises(ValueError, match="bmin_val"):
         fused_query_packed(sq.blocks, sq.stw, [0], [5], spec=specq)

@@ -4,8 +4,9 @@ Under ``torch.profiler`` a batch shows as one ``dispatch`` host event over
 its phases (``dispatch.bounds``, ``dispatch.partition``, one
 ``dispatch.launch`` per path, ``dispatch.scatter`` for mixed batches); with
 no profiler and the disabled tracer the spans cost no allocation; answers
-do not depend on tracing; ``dispatch_batches_total`` counts every call and
-a CPU device copies nothing. Small n: the file runs in a few seconds.
+do not depend on tracing; ``dispatch_batches_total`` counts every call,
+``dispatch_launched_queries_total`` each launch's padded length, and a CPU
+device copies nothing. Small n: the file runs in a few seconds.
 """
 
 import tracemalloc
@@ -15,7 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import registry
+from repro_torch.core import hybrid, registry
 from repro_torch.obs import metrics, trace
 
 N = 4096
@@ -130,3 +131,10 @@ def test_cpu_dispatch_counts_batches_and_copies_nothing(state, reg):
     assert reg.counter_total("dispatch_batches_total") == 4
     assert reg.counter_total("dispatch_copy_bytes_total") == 0
     assert reg.histograms() == []  # no device time on the CPU
+    # Each launch's length, its (0, 0) pads included; no kernel ran.
+    l, r = _batch("mixed")
+    n_short = int(((r - l + 1) <= state.threshold).sum())
+    launched = {"short": hybrid._pow2(n_short) + 512, "long": hybrid._pow2(300 - n_short) + 512}
+    for path, want in launched.items():
+        assert reg.counter_total("dispatch_launched_queries_total", path=path) == want
+    assert reg.counter_total("query_kernel_queries_total") == 0
