@@ -25,7 +25,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 2^26 float32 and int32, ``ops.query(fused=False)`` equal to
    ``ops.query`` and ``ops.lane_query`` equal to ``core.lane_rmq.query``,
    both checked against the oracle on a sample. B in {4096, 4099}, bit for
-   bit. Also timed: packed32 and ``lane_partials`` for one query (B = 1,
+   bit. Then ``sparse_query`` (the hybrid's long path) vs its plain chain
+   at the benchmark cell's n = 10^8, float32 and int32, on 2^22 lengths
+   uniform in [1, n] and ``doubling_edges``: bit for bit, timed beside the
+   plain chain. Also timed: packed32 and ``lane_partials`` for one query (B = 1,
    their floor), and ``lane_partials`` on lengths uniform in [1, 128]
    (about half inside one lane block). Then every kernel against its plain
    version on ``kernels.edge_batch`` (ranges cut at 4j, 4j+3 and mid-piece,
@@ -256,6 +259,8 @@ FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5 times the 50 MB L2
 N_MAIN = 1 << 26  # the served array: 2^26 float32 values
 N_RESIDENT = 1 << 20  # nb = 2^13 blocks of 128: both fetches timed and served here
 EULER_HEIGHT = 24  # Euler tour of a complete binary tree: n = 2^26 - 3
+N_LONG = 10**8  # the benchmark cell's array: sparse_query's row (a 28-level table, 11.2 GB)
+SPARSE_BYTES_PER_QUERY = 8 + 4 * 32 + 8  # bounds, four random 32-byte sectors, answers
 # Phase 7f's array: three replicas each hold a whole structure, and an online
 # hybrid at 2^26 peaks at 16.2 GB and repairs each batch on the host for 5-9 s.
 N_FLEET = 1 << 24
@@ -396,6 +401,21 @@ def _kernel_ms(torch, fn, name: str, iters: int = 20, attempts: int = 5, flush=N
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         print(f"[profiler] no {name} kernel recorded in a session of {iters} calls; again")
     raise SystemExit(f"chip_smoke: FAILED: torch.profiler recorded no {name} kernel")
+
+
+def all_kernels_ms(torch, fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` in ms over every kernel it launches (a
+    chain of torch ops), from ``torch.profiler``: the mean over ``iters``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
 def kernel_times(torch, fn, name: str, flush) -> dict:
@@ -1897,10 +1917,10 @@ def _main() -> int:
     from repro_torch import update
     from repro_torch.checkpoint.store import _flatten
     from repro_torch.core import build as build_mod
-    from repro_torch.core import calib_cache, hybrid, lane_rmq, ref, registry
+    from repro_torch.core import calib_cache, hybrid, lane_rmq, ref, registry, sparse_table
     from repro_torch.kernels import _build, ops, tuning
     from repro_torch.kernels.block_min import block_min, block_min_plain
-    from repro_torch.kernels.edge_batch import edge_batch, maxval_only
+    from repro_torch.kernels.edge_batch import doubling_edges, edge_batch, maxval_only
     from repro_torch.kernels.fused_query import (
         fused_query,
         fused_query_packed,
@@ -1909,6 +1929,7 @@ def _main() -> int:
     )
     from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
     from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
+    from repro_torch.kernels.sparse_query import sparse_query, sparse_query_plain
     from repro_torch.fault import DurableEngine
     from repro_torch.launch import serve
     from repro_torch.obs import Tracer, set_tracer
@@ -2186,6 +2207,48 @@ def _main() -> int:
             del short, first, a  # the served runs measure their own peak memory
         del fs, ls_, planes, pargs, largs
 
+    # The long path: sparse_query at the benchmark cell's size, n = 10^8 and
+    # a batch of 2^22 lengths uniform in [1, n] (the table's k * n passes
+    # 2^31 from k = 22) with doubling_edges' queries; float32 timed, int32
+    # checked. The plain chain is timed by CUDA events (``plain_ms``) and
+    # by the device time of all its kernels.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = 1 << 22
+    length = torch.randint(1, N_LONG + 1, (q,), generator=gen, device=dev)
+    lo = (torch.rand(q, generator=gen, device=dev, dtype=torch.float64) * (N_LONG - length + 1)).long()
+    lo = torch.minimum(lo, N_LONG - length)
+    el, er = (torch.from_numpy(a).to(dev) for a in doubling_edges(N_LONG))
+    lt = torch.cat([lo.int(), el])
+    rt = torch.cat([(lo + length - 1).int(), er])
+    for kind in ("f32", "i32"):
+        if kind == "f32":
+            x = torch.rand(N_LONG, generator=gen, device=dev)
+        else:
+            x = torch.randint(-1000, 1000, (N_LONG,), generator=gen, device=dev, dtype=torch.int32)
+        st = sparse_table.build(x)
+        ki, kv = sparse_query(st.idx, x, lt, rt)
+        pi, pv = sparse_query_plain(st.idx, x, lt, rt)
+        torch.cuda.synchronize()
+        _require(torch.equal(ki, pi) and same_bits(kv, pv), f"sparse_query {kind} n={N_LONG} != plain")
+        print(f"[sparse_query] {kind} n={N_LONG} B={lt.numel()} levels={st.idx.shape[0]}: kernel == plain, bit for bit")
+        if kind == "f32":
+            t = kernel_times(torch, lambda: sparse_query(st.idx, x, lt, rt), "sparse_query_kernel", flush)
+            plain_ms = _time_ms(torch, lambda: sparse_query_plain(st.idx, x, lt, rt))
+            plain_device_ms = all_kernels_ms(torch, lambda: sparse_query_plain(st.idx, x, lt, rt))
+            bound_ms = lt.numel() * SPARSE_BYTES_PER_QUERY / HBM_BYTES_PER_S * 1e3
+            err = _max_abs_err(torch, kv, pv)
+            print(
+                f"[sparse_query] f32 n={N_LONG} B={lt.numel()}: equal to plain (max_abs_err {err}); "
+                f"kernel {t['ms']} ms/batch on the device, {t['cold_ms']} ms with L2 flushed, "
+                f"{t['call_ms']:.4f} ms per wrapper call; plain {plain_ms:.4f} ms "
+                f"({plain_device_ms:.4f} ms of device time), bound {bound_ms:.6f} ms"
+            )
+            kernels["sparse_query"] = dict(
+                **t, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None, max_abs_err=err,
+            )
+        del st, x, ki, kv, pi, pv
+    del lt, rt, lo, length, el, er
+
     # --- phase 4b: every kernel on edge_batch, bs = 128 and 256 -------------
     def on_maxval_only(idx, xq, lq, rq, label):
         """``idx`` (a kernel's answer) equals the numpy oracle on every query
@@ -2289,6 +2352,7 @@ def _main() -> int:
         "fused_query_packed[packed64]": lambda: fused_query_packed.launches_by_body["packed64"],
         "rmq_partials": lambda: rmq_partials.launches,
         "lane_partials": lambda: lane_partials.launches,
+        "sparse_query": lambda: sparse_query.launches,
     }
     counts = dict.fromkeys(counters, 0)
 
@@ -2300,6 +2364,7 @@ def _main() -> int:
         fused_query_packed.launches_by_body = dict.fromkeys(fused_query_packed.launches_by_body, 0)
         rmq_partials.launches = 0
         lane_partials.launches = 0
+        sparse_query.launches = 0
 
     def drive(label, fn, must=(), none=False, some=()):
         """Run one served path with the counts at 0; ``must`` kernels have to
@@ -2338,8 +2403,10 @@ def _main() -> int:
           (*unpacked, "fused_query[resident]"))
     torch.cuda.reset_peak_memory_stats()
     for dist in ("small", "medium"):
+        # medium lengths (about n^0.6) pass the sqrt(n) threshold: the long path's kernel.
         drive(f"hybrid async {dist} 2^26",
-              cli([*asy, "--engine", "hybrid", "--n", str(N_MAIN), "--dist", dist]), unpacked)
+              cli([*asy, "--engine", "hybrid", "--n", str(N_MAIN), "--dist", dist]),
+              (*unpacked, *(("sparse_query",) if dist == "medium" else ())))
     print(f"[served] max_memory_allocated {torch.cuda.max_memory_allocated()} bytes (async hybrid, n={N_MAIN})")
 
     torch.cuda.reset_peak_memory_stats()
@@ -2942,6 +3009,8 @@ def _main() -> int:
         "fused_query_packed[packed64]": ("src/repro_torch/csrc/fused_query_packed.cu", "src/repro/core/block_rmq.py:291"),
         "rmq_partials": ("src/repro_torch/csrc/rmq_partials.cu", "src/repro/kernels/rmq_query.py:107"),
         "lane_partials": ("src/repro_torch/csrc/lane_partials.cu", "src/repro/kernels/lane_query.py:104"),
+        # No Pallas body: the reference's doubling-table query is jnp ops.
+        "sparse_query": ("src/repro_torch/csrc/sparse_query.cu", "src/repro/core/sparse_table.py:79"),
     }
     rows = []
     for name, m in kernels.items():
@@ -2963,7 +3032,7 @@ def _main() -> int:
                 "library_ms": m["library_ms"],
             }
         )
-    _require(len(rows) == 9, f"a kernel has no measurement ({sorted(kernels)})")
+    _require(len(rows) == 10, f"a kernel has no measurement ({sorted(kernels)})")
     print(json.dumps({"kernels": rows}))
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s (imports and kernel build included)")
     print(card)

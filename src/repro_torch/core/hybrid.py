@@ -108,7 +108,9 @@ def assemble(
 
     ``spec`` is the ``PackSpec`` of packed parts (None for unpacked ones).
     With ``use_kernels`` a CUDA kernel serves the short path, for unpacked
-    parts and every packed layout.
+    parts and every packed layout, and for unpacked parts another serves the
+    long path (``ops.sparse_query``; packed tables keep
+    ``sparse_table.query_packed``).
     """
     if spec is not None:
         if use_kernels:
@@ -123,12 +125,13 @@ def assemble(
             from repro_torch.kernels import ops
 
             short_fn = lambda l, r: ops.query(blocked, l, r, config=kernel_config)
+            long_fn = lambda l, r: ops.sparse_query(st.idx, x, l, r)
         else:
             short_fn = lambda l, r: block_rmq.query(blocked, l, r)
 
-        def long_fn(l, r):
-            idx = sparse_table.query(st, l, r)
-            return idx, x[idx]
+            def long_fn(l, r):
+                idx = sparse_table.query(st, l, r)
+                return idx, x[idx]
 
     return HybridRMQ(
         blocked=blocked,

@@ -10,6 +10,7 @@ from .block_min import block_min
 from .fused_query import fused_query, fused_query_packed
 from .lane_query import lane_partials
 from .rmq_query import rmq_partials
+from .sparse_query import sparse_query
 
 __all__ = [
     "ops",
@@ -20,4 +21,5 @@ __all__ = [
     "fused_query_packed",
     "lane_partials",
     "rmq_partials",
+    "sparse_query",
 ]

@@ -38,6 +38,7 @@ SOURCES = (
     "fused_query_packed.cu",
     "rmq_partials.cu",
     "lane_partials.cu",
+    "sparse_query.cu",
 )
 _HEADERS = ("common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -61,6 +62,8 @@ _SIGNATURES = {
     "repro_rmq_partials_i32": (_P,) * 8 + (_I,) * 4 + (_P,),
     "repro_lane_partials_f32": (_P,) * 11 + (_I,) * 3 + (_P,),
     "repro_lane_partials_i32": (_P,) * 11 + (_I,) * 3 + (_P,),
+    "repro_sparse_query_f32": (_P,) * 6 + (_I,) * 2 + (_P,),
+    "repro_sparse_query_i32": (_P,) * 6 + (_I,) * 2 + (_P,),
 }
 
 _lock = threading.Lock()

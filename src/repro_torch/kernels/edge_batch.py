@@ -20,13 +20,15 @@ where such a scheme can go wrong, for any ``bs`` that is a multiple of 128:
 
 The tests hold the port to the reference on these inputs and
 ``chip_smoke.py`` holds each kernel to its plain version on them.
+``doubling_edges`` does the same for the doubling-table query
+(``sparse_query``): the lengths where ``exact_log2`` steps.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["NB", "edge_batch", "maxval_only"]
+__all__ = ["NB", "doubling_edges", "edge_batch", "maxval_only"]
 
 NB = 24  # blocks of the array (the last one padded)
 
@@ -118,3 +120,16 @@ def maxval_only(x: np.ndarray, l, r) -> np.ndarray:
     big = np.inf if np.issubdtype(x.dtype, np.floating) else np.iinfo(x.dtype).max
     real = np.concatenate([[0], np.cumsum(x != big)])
     return real[np.asarray(r) + 1] == real[np.asarray(l)]
+
+
+def doubling_edges(n: int):
+    """``(l, r)`` int32 bounds over an array of ``n`` values where a
+    doubling-table query can go wrong: lengths 1, ``n`` and every 2^k - 1,
+    2^k and 2^k + 1 up to ``n`` (where ``exact_log2`` steps, and the two
+    cells overlap least or most), each from the array's start and to its
+    end, then two (0, 0) queries, the pads of ``hybrid.dispatch_by_length``."""
+    steps = {(1 << k) + d for k in range(n.bit_length()) for d in (-1, 0, 1)}
+    lengths = sorted(v for v in steps | {1, n} if 1 <= v <= n)
+    l = [0] * len(lengths) + [n - v for v in lengths] + [0, 0]
+    r = [v - 1 for v in lengths] + [n - 1] * len(lengths) + [0, 0]
+    return np.array(l, np.int32), np.array(r, np.int32)

@@ -8,8 +8,9 @@ value-augmented tables of the dma fetch strategy, precomputed once);
 a ``tuning.KernelConfig``; ``query(fused=False)`` is the two-pass A/B path
 (the ``rmq_partials`` kernel, then the interior and merge in PyTorch).
 ``build_packed``/``query_packed`` serve the packed word structures through
-``fused_query_packed``, and ``lane_query`` the lane engine through
-``lane_partials``. Port of ``repro/kernels/ops.py``.
+``fused_query_packed``, ``sparse_query`` a doubling table (the hybrid
+engine's long path) through its kernel, and ``lane_query`` the lane engine
+through ``lane_partials``. Port of ``repro/kernels/ops.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .fused_query import (
 )
 from .lane_query import lane_partials
 from .rmq_query import rmq_partials
+from .sparse_query import sparse_query
 from .tuning import DEFAULT_TILE, KernelConfig
 
 __all__ = [
@@ -41,6 +43,7 @@ __all__ = [
     "build_packed",
     "query",
     "query_packed",
+    "sparse_query",
     "block_min",
     "fused_query",
     "fused_query_packed",

@@ -16,10 +16,10 @@ import torch
 
 from repro_torch import update
 from repro_torch._tree import leaves, tree_map
-from repro_torch.core import block_rmq, hybrid, lane_rmq, ref
+from repro_torch.core import block_rmq, hybrid, lane_rmq, ref, sparse_table
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_min import block_min, block_min_plain
-from repro_torch.kernels.edge_batch import edge_batch, maxval_only
+from repro_torch.kernels.edge_batch import doubling_edges, edge_batch, maxval_only
 from repro_torch.kernels.fused_query import (
     fused_query,
     fused_query_packed,
@@ -28,6 +28,7 @@ from repro_torch.kernels.fused_query import (
 )
 from repro_torch.kernels.lane_query import lane_partials, lane_partials_plain
 from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
+from repro_torch.kernels.sparse_query import sparse_query, sparse_query_plain
 from repro_torch.launch import serve
 from torch_parity_util import assert_same_structure
 
@@ -143,6 +144,86 @@ def test_dispatch_counts_copies_and_times_each_path_on_card(cuda, monkeypatch):
     times = {h.labels["path"]: h for name, h in reg.histograms() if name == "dispatch_path_device_s"}
     assert sorted(times) == ["long", "short"]
     assert all(h.count == 2 and h.sum > 0 for h in times.values())
+
+
+def _uniform_lengths(gen, n, q, dev):
+    """``q`` int32 bounds over ``n`` values, lengths uniform in [1, n] (the
+    ``large_b22`` law), drawn on the card."""
+    length = torch.randint(1, n + 1, (q,), generator=gen, device=dev, dtype=torch.int64)
+    l = (torch.rand(q, generator=gen, device=dev, dtype=torch.float64) * (n - length + 1)).to(torch.int64)
+    l = torch.minimum(l, n - length)
+    return l.to(torch.int32), (l + length - 1).to(torch.int32)
+
+
+def _with_edges(l, r, n, dev):
+    el, er = doubling_edges(n)
+    return (torch.cat([torch.from_numpy(el).to(dev), l]), torch.cat([torch.from_numpy(er).to(dev), r]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f32z", "i32"])
+def test_sparse_query_kernel_matches_plain_on_card(cuda, dtype):
+    """The doubling-table kernel against ``sparse_query_plain``, indices and
+    value bits, at n = 2^20: lengths uniform in [1, n] and the edges
+    (lengths 1, n and 2^k +- 1 from either end, (0, 0) pads), in a batch
+    that fills no whole thread block; then ranges of maxval alone answer
+    their first index."""
+    n = 1 << 20
+    x = torch.from_numpy(_values(np.random.default_rng(31), n, dtype)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    l, r = _with_edges(*_uniform_lengths(gen, n, 100_003, cuda), n, cuda)
+    st = sparse_table.build(x)
+    _same_bits(sparse_query(st.idx, x, l, r), sparse_query_plain(st.idx, x, l, r))
+    big = torch.full((n,), float("inf") if x.dtype == torch.float32 else 2**31 - 1, dtype=x.dtype, device=cuda)
+    big[::4096] = 0
+    stb = sparse_table.build(big)
+    lb = torch.arange(1, n - 4096, 4096, dtype=torch.int32, device=cuda)
+    got = sparse_query(stb.idx, big, lb, lb + 4094)
+    _same_bits(got, sparse_query_plain(stb.idx, big, lb, lb + 4094))
+    assert torch.equal(got[0], lb)
+
+
+def test_sparse_query_kernel_past_2_31_table_offsets_on_card(cuda):
+    """At the benchmark cell's n = 10^8 the table has 28 levels, and k * n
+    passes 2^31 - 1 from k = 22: the kernel's 64-bit offsets against the
+    plain version on 2^22 lengths uniform in [1, n] and the edges."""
+    n, q = 10**8, 1 << 22
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x = torch.rand(n, generator=gen, device=cuda)
+    st = sparse_table.build(x)
+    assert (st.idx.shape[0] - 1) * n > 2**31 - 1
+    l, r = _with_edges(*_uniform_lengths(gen, n, q, cuda), n, cuda)
+    k = torch.floor(torch.log2((r - l + 1).double()))
+    assert bool((k * n > 2**31 - 1).any())
+    _same_bits(sparse_query(st.idx, x, l, r), sparse_query_plain(st.idx, x, l, r))
+
+
+def test_sparse_query_counts_its_launches_on_a_mixed_hybrid_batch(cuda, monkeypatch):
+    """A mixed batch through ``hybrid`` launches the kernel once on its long
+    path: ``sparse_query.launches`` rises by one and
+    ``sparse_query_queries_total{layout=unpacked}`` by the long launch's
+    length, pads included, as ``dispatch_launched_queries_total{path=long}``
+    does; a call without queries launches and counts nothing."""
+    from repro_torch.obs import metrics
+
+    reg = metrics.MetricsRegistry()
+    monkeypatch.setattr(metrics, "_DEFAULT", reg)
+    n, b = 1 << 20, 5000
+    x = np.random.default_rng(33).random(n, dtype=np.float32)
+    s = hybrid.build(x, device=cuda)  # threshold sqrt(n) = 1024
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    l, r = _uniform_lengths(gen, n, b, cuda)
+    n_long = int(((r - l + 1) > s.threshold).sum())
+    assert 0 < n_long < b
+    before = sparse_query.launches
+    idx, _ = hybrid.query(s, l, r)
+    assert sparse_query.launches == before + 1
+    counted = reg.counter_total("sparse_query_queries_total", layout="unpacked")
+    assert counted == reg.counter_total("dispatch_launched_queries_total", path="long") == 1 << (n_long - 1).bit_length()
+    assert np.array_equal(idx.cpu().numpy(), ref.rmq_ref(x, l.cpu().numpy(), r.cpu().numpy()))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = sparse_query(s.st.idx, s.x, empty, empty)
+    assert got[0].numel() == 0 and sparse_query.launches == before + 1
+    assert reg.counter_total("sparse_query_queries_total") == counted
 
 
 def test_serve_cli_on_card(cuda, capsys):

@@ -28,14 +28,15 @@ from repro.kernels.fused_query import interior_tables as jax_interior_tables
 from repro.kernels.lane_query import lane_partials as jax_lane_partials
 from repro.kernels.ref import rmq_partials_ref as jax_rmq_partials_ref
 from repro.kernels.rmq_query import rmq_partials as jax_rmq_partials
-from repro_torch.core import block_rmq, lane_rmq, sparse_table
+from repro_torch.core import block_rmq, hybrid, lane_rmq, sparse_table
 from repro_torch.kernels import _build, ops, tuning
 from repro_torch.kernels.block_min import block_min
-from repro_torch.kernels.edge_batch import edge_batch, maxval_only
+from repro_torch.kernels.edge_batch import doubling_edges, edge_batch, maxval_only
 from repro_torch.kernels.fused_query import fused_query, fused_query_packed, fused_query_packed_plain
 from repro_torch.kernels.lane_query import lane_partials
 from repro_torch.kernels.ref import block_min_ref, rmq_partials_ref
 from repro_torch.kernels.rmq_query import rmq_partials, rmq_partials_plain
+from repro_torch.kernels.sparse_query import sparse_query, sparse_query_plain
 from torch_parity_util import assert_same_answer, assert_same_structure, to_np
 
 
@@ -194,6 +195,122 @@ def test_sparse_table_matches_reference(n, dtype):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(to_np(got), np.asarray(want))
     np.testing.assert_array_equal(to_np(got), ref.rmq_ref(x, l, r))
+
+
+# --- sparse_query: the doubling-table query of the long path ----------------
+
+
+def _doubling_values(rng, n, kind):
+    """Values of a ``sparse_query`` test: ``_values``' uniform float32, zeros
+    of both signs among ties, tie-heavy small integers; or ``f32max`` /
+    ``i32max``, maxval (+inf, INT32_MAX) with a few small values, so that
+    many ranges hold maxval alone."""
+    if kind in ("f32", "f32z", "i32"):
+        return _values(rng, n, kind)
+    big = np.float32(np.inf) if kind == "f32max" else np.iinfo(np.int32).max
+    x = np.full(n, big, np.float32 if kind == "f32max" else np.int32)
+    few = rng.random(n) < 0.05
+    x[few] = rng.integers(-3, 3, int(few.sum()))
+    return x
+
+
+def _doubling_queries(rng, n, b=64):
+    """``doubling_edges(n)``, then random queries up to ``b`` in all."""
+    el, er = doubling_edges(n)
+    l, r = _queries(rng, n, b - el.size)
+    return np.concatenate([el, l]), np.concatenate([er, r])
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 129, 1000])
+@pytest.mark.parametrize("kind", ["f32", "f32z", "i32", "f32max", "i32max"])
+def test_sparse_query_matches_plain_and_reference(n, kind):
+    """On CPU tensors ``sparse_query`` is ``sparse_table.query`` then
+    ``x[idx]``, bit for bit, and its indices are the reference's and the
+    oracle's: lengths 1, n and 2^k +- 1 from either end, (0, 0) pads, ties
+    (the leftmost wins), zeros of both signs and maxval-only ranges."""
+    rng = np.random.default_rng(n)
+    x = _doubling_values(rng, n, kind)
+    l, r = _doubling_queries(rng, n)
+    xt, lt, rt = torch.from_numpy(x), torch.from_numpy(l), torch.from_numpy(r)
+    st = sparse_table.build(xt)
+    got = sparse_query(st.idx, xt, lt, rt)
+    idx = to_np(sparse_table.query(st, lt, rt))
+    _assert_bits((idx, x[idx]), got)
+    _assert_bits((idx, x[idx]), sparse_query_plain(st.idx, xt, lt, rt))
+    want = jax_sparse_table.query(jax_sparse_table.build(jnp.asarray(x)), jnp.asarray(l), jnp.asarray(r))
+    np.testing.assert_array_equal(to_np(got[0]), np.asarray(want))
+    np.testing.assert_array_equal(to_np(got[0]), ref.rmq_ref(x, l, r))
+
+
+@pytest.mark.parametrize("kind", ["f32z", "i32max"])
+def test_hybrid_with_use_kernels_answers_as_without(kind, monkeypatch):
+    """``hybrid.assemble(use_kernels=True)`` sends the long path through
+    ``ops.sparse_query`` (its plain version on the CPU) and answers mixed
+    batches as the torch-op path does, bit for bit."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    x = _doubling_values(rng, n, kind)
+    l, r = _doubling_queries(rng, n, 400)
+    calls = []
+    real = ops.sparse_query
+    monkeypatch.setattr(ops, "sparse_query", lambda *a, **k: calls.append(a[2].numel()) or real(*a, **k))
+    plain = hybrid.build(x, threshold=40, use_kernels=False, device="cpu")
+    kern = hybrid.build(x, threshold=40, use_kernels=True, device="cpu")
+    assert kern.use_kernels and not plain.use_kernels
+    want = [to_np(a) for a in hybrid.query(plain, l, r)]
+    assert not calls
+    _assert_bits(want, hybrid.query(kern, l, r))
+    n_long = int(((r.astype(np.int64) - l + 1) > 40).sum())
+    assert 0 < n_long < l.size and calls == [1 << (n_long - 1).bit_length()]
+
+
+def _sparse_query_case(case):
+    x = torch.arange(8, dtype=torch.float32)
+    t = sparse_table.build(x).idx
+    l = torch.tensor([0, 2], dtype=torch.int32)
+    r = torch.tensor([7, 5], dtype=torch.int32)
+    if case == "table int64":
+        t = t.long()
+    elif case == "table 1-D":
+        t = t[0]
+    elif case == "table too few levels":
+        t = t[:2].contiguous()
+    elif case == "table of another n":
+        t = sparse_table.build(torch.arange(9, dtype=torch.float32)).idx
+    elif case == "table not contiguous":
+        t = t.t().contiguous().t()
+    elif case == "x float64":
+        x = x.double()
+    elif case == "x 2-D":
+        x = x[None]
+    elif case == "l 2-D":
+        l = l[None]
+    elif case == "l int64":
+        l = l.long()
+    elif case == "l a list":
+        l = [0, 2]
+    elif case == "unequal shapes":
+        r = r[:1]
+    elif case == "device mismatch":
+        x = x.to("meta")
+    return t, x, l, r
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        "table int64", "table 1-D", "table too few levels", "table of another n",
+        "table not contiguous", "x float64", "x 2-D", "l 2-D", "l int64", "l a list",
+        "unequal shapes", "device mismatch",
+    ],
+)
+def test_sparse_query_rejects_what_the_kernel_does_not_take(case):
+    """The checks come before the CPU branch, so a CPU call raises on every
+    input the kernel would not take; there is no quiet fallback."""
+    with pytest.raises((ValueError, TypeError)):
+        sparse_query(*_sparse_query_case(case))
+    idx, val = sparse_query(*_sparse_query_case("none"))
+    assert idx.tolist() == [0, 2] and val.tolist() == [0.0, 2.0]
 
 
 @pytest.mark.parametrize("bs", [128, 256])

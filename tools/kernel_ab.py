@@ -27,6 +27,10 @@ Rows, one batch of B = 4096 queries with lengths uniform in [1, 8192]
 - packed32 ``fused_query_packed``: resident at n = 2^20 (int32 in
   [-24, 24], key span 49), dma on the Euler-tour depths of
   ``chip_smoke.euler_depths`` (n = 2^26 - 3), each also for one query.
+- the long path at n = 10^8 float32, 2^22 lengths uniform in [1, n]: the
+  plain chain (``sparse_table.query``, then the value gather; ``call_ms``
+  and ``device_ms``, the device time of all its kernels) and, in a tree
+  that has it, the ``sparse_query`` kernel (``equal``: to the chain).
 
 For each, ``chip_smoke.kernel_times``: ``ms``
 (device time, the batch launched again and again, so L2 is warm),
@@ -148,6 +152,12 @@ def main(argv=None) -> int:
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
+
+    # chip_smoke puts this checkout's src first and imports repro_torch from
+    # it: put --src back in front and drop what came from this checkout.
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    for name in [m for m in sys.modules if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
     from repro_torch.core import lane_rmq
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fused_query import fused_query, fused_query_packed
@@ -267,6 +277,37 @@ def main(argv=None) -> int:
                 flush,
             )
         del p
+    # The long path at the benchmark cell's size, n = 10^8 float32 and 2^22
+    # lengths uniform in [1, n]: the plain chain (``sparse_table.query``,
+    # then the value gather) in every tree, and the ``sparse_query`` kernel
+    # where the tree has it, checked equal to the chain.
+    from repro_torch.core import sparse_table
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, q = cs.N_LONG, 1 << 22
+    x = torch.rand(n, generator=gen, device=dev)
+    st = sparse_table.build(x)
+    length = torch.randint(1, n + 1, (q,), generator=gen, device=dev)
+    lo = torch.minimum((torch.rand(q, generator=gen, device=dev, dtype=torch.float64) * (n - length + 1)).long(), n - length)
+    lt, rt = lo.int(), (lo + length - 1).int()
+
+    def chain():
+        i = sparse_table.query(st, lt, rt)
+        return i, x[i]
+
+    rows["sparse_table.query chain n=10^8 B=2^22"] = dict(
+        call_ms=cs._time_ms(torch, chain), device_ms=cs.all_kernels_ms(torch, chain)
+    )
+    try:
+        from repro_torch.kernels.sparse_query import sparse_query
+    except ImportError:  # a tree without the kernel
+        sparse_query = None
+    if sparse_query is not None:
+        row = cs.kernel_times(torch, lambda: sparse_query(st.idx, x, lt, rt), "sparse_query_kernel", flush)
+        got, want = sparse_query(st.idx, x, lt, rt), chain()
+        row["equal"] = all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+        rows["sparse_query n=10^8 B=2^22"] = row
+    del st, x
     print(card)
     print(json.dumps({
         "label": args.label, "src": args.src, "lane_queries": args.lane_queries, "card": card,
